@@ -8,26 +8,40 @@ Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of this repository.  Phases, each printing its own lines:
 
   1. environment: the card's name and power limit, and the ``nvcc`` build
-     of both kernels (``csrc/*.cu``, built in parallel for ``sm_90a``);
+     of the three kernels (``csrc/*.cu``, built in parallel for
+     ``sm_90a``);
   2. K1 (fused chunk step) against its plain PyTorch version on the card,
      at 180x240 and 1280x720, 512 events, 1 and 4 lanes, BER off and on:
      every output must be equal;
   3. K2 (Harris response) against its plain version at both sizes, within
-     ``1e-5 * max|R|``;
+     ``1e-5 * max|R|``; K3 (stream compaction) against its plain version
+     over rows x events x cap x density: every output equal;
   4. end to end on the DAVIS240 sensor (180x240): ``run_pipeline`` with
      BER at a fixed 0.6 V and with online DVFS, on the card and on the CPU
      (plain versions), held to the parity bounds; PR-AUC printed;
   5. end to end at 1280x720 (an HD event sensor): events/s and ms per
      chunk; the launch counts of phases 4-5 must be nonzero for both
      kernels;
-  6. per-kernel times (CUDA events) beside the plain versions' times and a
-     bound from bytes and operations, a profile of the HD step, and the
-     JSON summary line.
+  6. the serving path: ``DetectorPool`` with 16 DAVIS240 lanes (online
+     DVFS with BER; async dense, async compact, sync dense, all equal) and
+     4 lanes at 1280x720 (fixed 1.2 V, compact), held against the same
+     pool on the CPU on a prefix of the same feeds; events/s, ms per pump
+     round (median and spread of three runs, all equal), D2H bytes per
+     fetch, overflow slots, and the idle share of a window: 1 - the
+     profiler's device busy time over the same window's unprofiled wall;
+     the serving path must launch K1, K2 and K3;
+  7. per-kernel times beside the plain versions' times and a bound from
+     bytes and operations: CUDA events over back-to-back calls (the JSON's
+     ``ms`` and ``plain_ms``, as in the first slice) and the device time
+     per call from the profiler (``device_ms``, ``plain_device_ms``, which
+     leave out the device's wait for the host to enqueue); a profile of
+     the HD step, and the JSON summary line.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -65,6 +79,25 @@ def cuda_ms(fn, iters=30, warmup=3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters=30, warmup=3) -> float:
+    """Mean device time per call of ``fn``: the summed device time of every
+    kernel and copy it launches, from the profiler, over ``iters``
+    back-to-back calls.  Unlike ``cuda_ms`` it does not count the gaps in
+    which the device waits for the host to enqueue the next call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(r.self_device_time_total for r in prof.key_averages()
+               if str(r.device_type).endswith("CUDA")) / 1e3 / iters
 
 
 def k1_inputs(rng, b, h, w, e, dev, *, inject):
@@ -160,6 +193,220 @@ def k2_bound(b, h, w, sobel=5, window=5):
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
+def k3_bound(keep, cap):
+    """Least time for one K3 call on this ``keep`` (bool, rows x E): every
+    keep byte read once, the float32 scores of each row's first
+    ``min(kept, cap)`` kept events read (no other score is needed), the
+    records (int32 index, float32 score) and the count written once; the
+    integer work (a compare, a ballot and a popcount per event) is far
+    below the bytes."""
+    rows, e = keep.shape
+    read = int(keep.sum(dim=1).clamp(max=cap).sum())
+    nbytes = rows * (e + cap * 8 + 4) + 4 * read
+    t_b, t_o = nbytes / MEM_BPS, rows * e * 3 / INT32_OPS
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def serve_pool(cfg, streams, seeds, *, slab, max_events=None, **pool_kw):
+    """Serve each stream on its own lane of one ``DetectorPool``: feed
+    every lane a slab, pump, poll, until the streams are spent, then flush.
+    Returns per-lane (scores, kept), the wall seconds from the first feed
+    to the last flush (which waits for the device), the events served and
+    ``pool_stats()``."""
+    import numpy as np
+    from repro_torch.serve import DetectorPool
+    pool = DetectorPool(cfg, len(streams), **pool_kw)
+    lanes = [pool.connect(seed=s) for s in seeds]
+    n = max_events or max(len(st) for st in streams)
+    outs = {i: [] for i in range(len(lanes))}
+    t0 = time.perf_counter()
+    for start in range(0, n, slab):
+        for i, lane in enumerate(lanes):
+            stop = min(start + slab, n)
+            pool.feed(lane, streams[i].xy[start:stop],
+                      streams[i].ts[start:stop])
+        pool.pump()
+        for i, lane in enumerate(lanes):
+            outs[i].append(pool.poll(lane))
+    for i, lane in enumerate(lanes):
+        outs[i].append(pool.flush(lane))
+    wall = time.perf_counter() - t0
+    stats = pool.pool_stats()
+    served = sum(pool.stats(lane)["n_events"] for lane in lanes)
+    pool.close()
+    res = {i: (np.concatenate([o[0] for o in v]),
+               np.concatenate([o[1] for o in v])) for i, v in outs.items()}
+    return res, wall, served, stats
+
+
+def serving_phase(smi, *, device, lanes=16, hd_lanes=4, dav_us=200_000,
+                  hd_us=100_000, hold_chunks=(24, 4), profile_chunks=32,
+                  reps=3):
+    """Phase 6: the serving path at full width on ``device``, each timed
+    run made ``reps`` times (every repeat must give the same results);
+    returns the launch counts of its runs and the HD pool's kept fraction.
+    Smaller arguments rehearse the phase on the CPU."""
+    import numpy as np
+    from repro_torch.core import pipeline
+    from repro_torch.events import synthetic
+    from repro_torch.kernels import ops
+    from repro_torch.obs.schema import WALL_TIME_KEYS
+
+    dav_streams = [synthetic.shapes_stream(duration_us=dav_us, seed=s)
+                   for s in range(lanes)]
+    dav_cfg = pipeline.PipelineConfig(chunk=512, lut_every_chunks=2,
+                                      patch=7, th=225, dvfs=True,
+                                      dvfs_online=True, inject_ber=True,
+                                      device=device)
+    hd_streams = [synthetic.shapes_stream(
+        height=720, width=1280, duration_us=hd_us, n_shapes=12,
+        signal_rate_per_us=2.0, noise_rate_per_us=0.5, seed=s)
+        for s in range(hd_lanes)]
+    hd_pool_cfg = pipeline.PipelineConfig(height=720, width=1280, chunk=512,
+                                          lut_every_chunks=2, vdd=1.2,
+                                          device=device)
+    pool_kw = dict(ring_rounds=8, pipeline_depth=2)
+    seeds = list(range(lanes))
+    # warm-up: first launches load the kernels and the pinned allocator
+    serve_pool(dav_cfg, dav_streams[:2], seeds[:2], slab=2048,
+               max_events=4096, readout="compact", **pool_kw)
+
+    ops.reset_launch_counts()
+    runs = {}
+    for name, kw in (("async_dense", dict(drain_mode="async",
+                                          readout="dense")),
+                     ("async_compact", dict(drain_mode="async",
+                                            readout="compact")),
+                     ("sync_dense", dict(drain_mode="sync",
+                                         readout="dense"))):
+        runs[name] = [serve_pool(dav_cfg, dav_streams, seeds, slab=16384,
+                                 **kw, **pool_kw) for _ in range(reps)]
+    hd_runs = [serve_pool(hd_pool_cfg, hd_streams, seeds[:hd_lanes],
+                          slab=16384, readout="compact", drain_mode="async",
+                          **pool_kw) for _ in range(reps)]
+    serve_launches = dict(ops.LAUNCHES)
+    print(f"[serve] launches on the serving path: {serve_launches}")
+    if device != "cpu" and min(serve_launches.values()) <= 0:
+        raise AssertionError(f"a kernel was not launched: {serve_launches}")
+
+    for name, got in {**runs, "hd_compact": hd_runs}.items():
+        for r, again in enumerate(got[1:], 1):
+            same_results(again[0], got[0][0], f"{name} repeat {r}")
+    same_results(runs["async_compact"][0][0], runs["async_dense"][0][0],
+                 "DAVIS240 pool compact vs dense")
+    same_results(runs["sync_dense"][0][0], runs["async_dense"][0][0],
+                 "DAVIS240 pool sync vs async")
+    for i, st in enumerate(dav_streams):
+        kept = runs["async_dense"][0][0][i][1]
+        if len(kept) != len(st) or not kept.any():
+            raise AssertionError(f"DAVIS240 pool lane {i} malformed")
+    for name, got in {**runs, "hd_compact": hd_runs}.items():
+        res, _, served, st = got[0]
+        walls = sorted(g[1] for g in got)
+        wall, rounds = walls[len(walls) // 2], st["rounds_executed"]
+        fetches = max(st["host_fetches"], 1)
+        print(f"[serve] {smi}: {name}: {served} events on {len(res)} "
+              f"lanes, wall median of {len(walls)} runs {wall:.4f} s "
+              f"(min {walls[0]:.4f}, max {walls[-1]:.4f}) = "
+              f"{served / wall:.0f} events/s; {rounds} pump rounds, "
+              f"{wall / rounds * 1e3:.4f} ms per round (min "
+              f"{walls[0] / rounds * 1e3:.4f}, max "
+              f"{walls[-1] / rounds * 1e3:.4f}); "
+              f"{st['host_fetches']} fetches, "
+              f"{st['d2h_bytes'] / fetches:.0f} D2H bytes per fetch "
+              f"(saved {st['d2h_bytes_saved']}), overflow slots "
+              f"{st['d2h_compact_overflow_slots']}, forced drains "
+              f"{st['pump_forced_drains']}, stages overlapped "
+              f"{st['pump_stages_overlapped']}/{st['pump_stages']}")
+    for i in range(hd_lanes):
+        s_, k_ = hd_runs[0][0][i]
+        if len(k_) != len(hd_streams[i]) or not np.isfinite(s_).any():
+            raise AssertionError(f"HD pool lane {i} malformed")
+
+    # The same pools on the CPU (plain versions), on a prefix of the feeds.
+    for name, cfg_, strs, n_ev in (
+            (f"DAVIS240 x{lanes}", dav_cfg, dav_streams,
+             hold_chunks[0] * 512),
+            (f"HD x{hd_lanes}", hd_pool_cfg, hd_streams,
+             hold_chunks[1] * 512)):
+        got = serve_pool(cfg_, strs, seeds[:len(strs)], slab=2048,
+                         max_events=n_ev, readout="compact",
+                         drain_mode="async", **pool_kw)
+        cpu_cfg = dataclasses.replace(cfg_, device="cpu")
+        want = serve_pool(cpu_cfg, strs, seeds[:len(strs)], slab=2048,
+                          max_events=n_ev, readout="compact",
+                          drain_mode="async", **pool_kw)
+        err = 0.0
+        for i in want[0]:
+            if not np.array_equal(got[0][i][1], want[0][i][1]):
+                raise AssertionError(f"{name}: lane {i} kept differs from "
+                                     f"the CPU pool")
+            err = max(err, close(got[0][i][0], want[0][i][0]))
+        for key in want[3]:
+            if key not in WALL_TIME_KEYS | {"h2d_pinned_staging"} \
+                    and got[3][key] != want[3][key]:
+                raise AssertionError(f"{name}: pool_stats[{key!r}] "
+                                     f"{got[3][key]} vs {want[3][key]}")
+        print(f"[serve] {name}, {n_ev} events per lane: kept equal to the "
+              f"CPU pool, scores max|delta| {err:.3g}, pool_stats equal")
+
+    kept_frac = float(np.mean(np.concatenate(
+        [k for _, k in hd_runs[0][0].values()])))
+    if device == "cpu":
+        return serve_launches, kept_frac
+    # Idle share of a profiled window of each pool.
+    profile_pool(smi, f"DAVIS240 x{lanes} async dense", dav_cfg, dav_streams,
+                 seeds, profile_chunks * 512, readout="dense", **pool_kw)
+    profile_pool(smi, f"HD x{hd_lanes} async compact", hd_pool_cfg,
+                 hd_streams, seeds[:hd_lanes], profile_chunks * 512,
+                 readout="compact", **pool_kw)
+    return serve_launches, kept_frac
+
+
+def profile_pool(smi, what, cfg, streams, seeds, n_events, reps=3,
+                 **pool_kw):
+    """Serve ``n_events`` per lane ``reps`` times unprofiled, then once
+    under the profiler.  The idle share is 1 - the profiled device busy
+    time over the median unprofiled wall (the profiler slows the host, not
+    the kernels).  Also prints the launches per round and the leading
+    device rows."""
+    from torch.profiler import ProfilerActivity, profile
+    kw = dict(slab=n_events, max_events=n_events, drain_mode="async",
+              **pool_kw)
+    walls = sorted(serve_pool(cfg, streams, seeds, **kw)[1] * 1e3
+                   for _ in range(reps))
+    wall = walls[len(walls) // 2]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, prof_wall, _, st = serve_pool(cfg, streams, seeds, **kw)
+    dev_rows = [r for r in prof.key_averages()
+                if str(r.device_type).endswith("CUDA")]
+    busy = sum(r.self_device_time_total for r in dev_rows) / 1e3
+    n_launch = sum(r.count for r in dev_rows)
+    rounds = st["rounds_executed"]
+    print(f"[serve] {smi}: {what} window, {rounds} rounds: unprofiled wall "
+          f"median of {reps} {wall:.2f} ms (min {walls[0]:.2f}, max "
+          f"{walls[-1]:.2f}) = {wall / rounds:.3f} ms per round; profiled "
+          f"wall {prof_wall * 1e3:.2f} ms; device busy {busy:.2f} ms = "
+          f"{busy / rounds:.3f} ms per round; idle share "
+          f"{1 - busy / wall:.3f} (min {1 - busy / walls[0]:.3f}, max "
+          f"{1 - busy / walls[-1]:.3f}); {n_launch} kernels and copies, "
+          f"{n_launch / rounds:.0f} per round")
+    for r in sorted((r for r in dev_rows if r.self_device_time_total > 0),
+                    key=lambda r: -r.self_device_time_total)[:8]:
+        print(f"[serve]   {r.self_device_time_total / 1e3:9.3f} ms "
+              f"x{r.count:<5d} {r.key[:90]}")
+
+
+def same_results(a, b, what):
+    """Two pools on one device: every output equal."""
+    import numpy as np
+    for i in a:
+        for k in (0, 1):
+            if not np.array_equal(a[i][k], b[i][k]):
+                raise AssertionError(f"{what}: lane {i} differs")
+
+
 def close(got, want):
     """Max |delta| over finite entries; raises unless -inf positions match
     and |delta| <= REL * max|want|."""
@@ -188,7 +435,8 @@ def main() -> int:
     from repro_torch.core import ber as ber_mod
     from repro_torch.core import pipeline, pr_eval, prng
     from repro_torch.events import synthetic
-    from repro_torch.kernels import _build, fused_step, harris_conv, ops
+    from repro_torch.kernels import _build, compact, fused_step, harris_conv
+    from repro_torch.kernels import ops
 
     dev = torch.device("cuda", 0)
     smi = nvidia_smi()
@@ -242,6 +490,30 @@ def main() -> int:
                   f"(max|R| {float(plain.abs().max()):.3g}, bit-equal "
                   f"{torch.equal(got, plain)})")
 
+    # --- 3b. K3 against its plain version -------------------------------
+    k3_err, n_cases = 0.0, 0
+    for rows in (1, 16, 128):
+        for e in (128, 512, 4096):
+            for cap in (1, e // 8, e):
+                for density in (0.0, 0.05, 1.0):
+                    scores = torch.randn(rows, e, device=dev)
+                    keep = torch.rand(rows, e, device=dev) < density
+                    plain = compact.compact_ref(scores, keep, cap=cap)
+                    got = compact.compact_cuda(scores, keep, cap=cap)
+                    for name, p, g in zip(("idx", "val", "count"), plain,
+                                          got):
+                        if not torch.equal(p, g):
+                            raise AssertionError(
+                                f"K3 {name} differs at rows={rows} E={e} "
+                                f"cap={cap} density={density}")
+                    fin = torch.isfinite(plain[1])
+                    if fin.any():
+                        k3_err = max(k3_err, float(
+                            (plain[1] - got[1])[fin].abs().max()))
+                    n_cases += 1
+    print(f"[K3] {n_cases} cases (rows 1/16/128 x E 128/512/4096 x cap "
+          f"1/E/8/E x density 0/0.05/1): idx, val, count equal")
+
     # --- 4/5. the main path: run_pipeline on the card ------------------
     davis = synthetic.shapes_stream(duration_us=200_000, seed=0)
     hd = synthetic.shapes_stream(height=720, width=1280,
@@ -277,10 +549,10 @@ def main() -> int:
     hd_res = pipeline.run_pipeline(hd.xy, hd.ts, hd_cfg)
     torch.cuda.synchronize()
     hd_s = time.perf_counter() - t0
-    launches = dict(ops.LAUNCHES)
-    print(f"[main] launches on the main path: {launches}")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel was not launched: {launches}")
+    batch_launches = dict(ops.LAUNCHES)
+    print(f"[main] launches on the batch path: {batch_launches}")
+    if min(batch_launches["fused_step"], batch_launches["harris"]) <= 0:
+        raise AssertionError(f"a kernel was not launched: {batch_launches}")
 
     for name, extra in davis_cfgs.items():
         cfg = pipeline.PipelineConfig(chunk=512, lut_every_chunks=2,
@@ -328,7 +600,10 @@ def main() -> int:
           f"upload and one fetch), kept {hd_res.kept.mean():.3f}, "
           f"vdd picks {sorted(set(hd_res.vdd_trace.tolist()))}")
 
-    # --- 6. times at the main path's shapes ----------------------------
+    # --- 6. the serving path: DetectorPool on the card -----------------
+    serve_launches, kept_frac = serving_phase(smi, device="cuda")
+
+    # --- 7. times at the main path's shapes ----------------------------
     b, h, w, e = 1, 720, 1280, 512
     ins, ber, bits = k1_inputs(rng, b, h, w, e, dev, inject=True)
     keep = fused_step.fused_step_cuda(*ins, ber, bits, **kw)[2]
@@ -351,11 +626,46 @@ def main() -> int:
           f"{k2_plain:.4f} ms, bound {k2_bms:.5f} ms by {k2_by}); threefry "
           f"BER draw (plain torch, 1280x720x5) {prng_ms:.4f} ms")
 
+    k1_dev = device_ms(lambda: fused_step.fused_step_cuda(*ins, ber, bits,
+                                                          **kw))
+    k1_plain_dev = device_ms(lambda: fused_step.fused_step_ref(
+        *ins, ber, bits, **kw), iters=5)
+    k2_dev = device_ms(lambda: harris_conv.harris_cuda(tos))
+    k2_plain_dev = device_ms(lambda: harris_conv.harris_ref(tos), iters=10)
+    print(f"[time] {smi}: device time per call (profiler): K1 "
+          f"{k1_dev:.4f} ms (plain {k1_plain_dev:.4f} ms), K2 "
+          f"{k2_dev:.4f} ms (plain {k2_plain_dev:.4f} ms)")
+    k3 = {}
+    for rows, cap in ((4, 64), (16, 64)):
+        sc = torch.randn(rows, 512, device=dev)
+        kp = torch.rand(rows, 512, device=dev) < kept_frac
+        k3[rows] = dict(
+            ms=cuda_ms(lambda: compact.compact_cuda(sc, kp, cap=cap)),
+            plain_ms=cuda_ms(lambda: compact.compact_ref(sc, kp, cap=cap),
+                             iters=10),
+            device_ms=device_ms(lambda: compact.compact_cuda(sc, kp,
+                                                             cap=cap)),
+            plain_device_ms=device_ms(
+                lambda: compact.compact_ref(sc, kp, cap=cap), iters=10))
+        k3[rows]["bound_ms"], k3[rows]["bound_by"] = k3_bound(kp, cap)
+        t = k3[rows]
+        print(f"[time] {smi}: K3 L={rows} E=512 cap={cap} (keep density "
+              f"{kept_frac:.3f}, the HD pool's; {int(kp.sum())} kept): "
+              f"{t['ms']:.4f} ms per call by CUDA events over back-to-back "
+              f"calls (host-bound), {t['device_ms']:.4f} ms on the device "
+              f"per launch; plain {t['plain_ms']:.4f} ms events, "
+              f"{t['plain_device_ms']:.4f} ms device; bound "
+              f"{t['bound_ms']:.7f} ms by {t['bound_by']}")
+
     # Profile of a short steady window of the HD step.
     from torch.profiler import ProfilerActivity, profile
     win = slice(0, 64 * hd_cfg.chunk)
     pipeline.run_pipeline(hd.xy[win], hd.ts[win], hd_cfg)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipeline.run_pipeline(hd.xy[win], hd.ts[win], hd_cfg)
+    torch.cuda.synchronize()
+    plain_wall_ms = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -378,8 +688,10 @@ def main() -> int:
                  "plain torch (threefry, DVFS, ...)")
         per[g] += r.self_device_time_total / 1e3
     dev_ms = sum(per.values())
-    print(f"[profile] {smi}: HD, 64 chunks: wall {wall_ms:.2f} ms, device "
-          f"busy {dev_ms:.2f} ms, idle share {1 - dev_ms / wall_ms:.3f}")
+    print(f"[profile] {smi}: HD, 64 chunks: unprofiled wall "
+          f"{plain_wall_ms:.2f} ms, profiled wall {wall_ms:.2f} ms, device "
+          f"busy {dev_ms:.2f} ms, idle share "
+          f"{1 - dev_ms / plain_wall_ms:.3f} (of the unprofiled wall)")
     for g, ms in per.items():
         print(f"[profile]   {g}: {ms:.3f} ms ({ms / 64 * 1e3:.1f} us/chunk)")
     ours = ("stcf_score", "tos_patch", "ber_apply", "harris_kernel",
@@ -389,19 +701,28 @@ def main() -> int:
             print(f"[profile]   {r.self_device_time_total / 1e3:9.3f} ms "
                   f"x{r.count:<5d} {r.key[:90]}")
 
+    launches = {k: batch_launches[k] + serve_launches[k]
+                for k in serve_launches}
     kernels = [
         {"name": "fused_step", "route": "cuda",
          "source": "src/repro_torch/csrc/fused_step.cu",
          "replaces": "src/repro/kernels/fused_step.py:154",
          "launches": launches["fused_step"], "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bms,
-         "bound_by": k1_by, "library_ms": None},
+         "bound_by": k1_by, "library_ms": None, "device_ms": k1_dev,
+         "plain_device_ms": k1_plain_dev},
         {"name": "harris", "route": "cuda",
          "source": "src/repro_torch/csrc/harris.cu",
          "replaces": "src/repro/kernels/harris_conv.py:101",
          "launches": launches["harris"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bms,
-         "bound_by": k2_by, "library_ms": None},
+         "bound_by": k2_by, "library_ms": None, "device_ms": k2_dev,
+         "plain_device_ms": k2_plain_dev},
+        {"name": "compact", "route": "cuda",
+         "source": "src/repro_torch/csrc/compact.cu",
+         "replaces": "src/repro/kernels/compact.py:65",
+         "launches": launches["compact"], "max_abs_err": k3_err,
+         "library_ms": None, **k3[4]},
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -112,6 +112,26 @@ def _is_online(cfg: PipelineConfig) -> bool:
     return bool(cfg.dvfs and cfg.dvfs_online)
 
 
+def _trace_cfg(cfg: PipelineConfig, *,
+               chunk: Optional[int] = None) -> PipelineConfig:
+    """The step's view of ``cfg``: fields the step never reads (vdd, seed,
+    host-precomputed DVFS, the refresh cadence — it reads the cadence from
+    ``DetectorState.ctrl``) canonicalized, and ``chunk`` overriding the
+    chunk size (the serving layer's bucket).  Configs that differ only in
+    those fields step identically."""
+    online = _is_online(cfg)
+    return dataclasses.replace(
+        cfg,
+        chunk=cfg.chunk if chunk is None else int(chunk),
+        vdd=1.2,
+        dvfs=online,
+        dvfs_online=online,
+        dvfs_cfg=cfg.dvfs_cfg if online else dvfs_mod.DvfsConfig(),
+        seed=0,
+        lut_every_chunks=1,
+    )
+
+
 def chunk_ts_base(ts_us: np.ndarray, cfg: PipelineConfig) -> int:
     """Per-stream rebase for device timestamps (int64 host -> int32 device),
     aligned down to a DVFS half-window multiple."""
@@ -178,10 +198,20 @@ def _chunk_inputs(preps: Sequence[_Prepared],
 
 
 def _fetch(*tensors: torch.Tensor) -> list[np.ndarray]:
-    """Copy several device tensors to the host in ONE blocking transfer:
-    their bytes are packed into one buffer on the device first."""
+    """Copy several device tensors to the host in ONE transfer on the
+    current stream, and wait for it: their bytes are packed into one buffer
+    on the device first and land in pinned host memory.  Returns owned
+    arrays (on the CPU, copies)."""
     flat = [t.contiguous().reshape(-1).view(torch.uint8) for t in tensors]
-    host = torch.cat(flat).cpu().numpy()
+    packed = torch.cat(flat)
+    if packed.is_cuda:
+        host_t = torch.empty(packed.shape, dtype=torch.uint8,
+                             pin_memory=True)
+        host_t.copy_(packed, non_blocking=True)
+        torch.cuda.current_stream(packed.device).synchronize()
+    else:
+        host_t = packed
+    host = host_t.numpy()
     out, off = [], 0
     for t, f in zip(tensors, flat):
         n = f.numel()

@@ -1,17 +1,23 @@
-"""The detector's state and its one-chunk step (``repro.core.state``).
+"""The detector's state, its one-chunk step and the pool's result rings
+(``repro.core.state``).
 
-``DetectorState`` carries B camera lanes that advance in lockstep: every
-tensor leaf has a leading lane axis, on the state's device.  The chunk
-cursor, ``lut_ready`` and the ``ControlState`` knobs are host values shared
-by the lanes — the host sets them and they advance deterministically — so
-the LUT-refresh decision needs no device read and a whole stream folds with
-a single host sync at the end.
+``DetectorState`` carries B camera lanes: every tensor leaf has a leading
+lane axis, on the state's device.  The chunk cursor, ``lut_ready`` and the
+``ControlState`` knobs are host numpy arrays of shape ``(B,)`` — the host
+sets them and they advance deterministically — so the LUT-refresh decision
+needs no device read and a whole stream folds with a single host sync at
+the end.  The batch pipeline's lockstep lanes are the case where all
+entries are equal; the serving pool's lanes join, leave and refresh on
+their own chunks.
 
 ``detector_step`` folds one chunk into every lane:
 
     [online DVFS picks the operating point] -> STCF -> TOS update
     -> [BER write errors at that point] -> score events against the latest
-    LUT -> (every ``lut_every``-th chunk) rebuild the Harris LUT.
+    LUT -> (every ``lut_every``-th chunk of a lane) rebuild its Harris LUT.
+
+An optional host lane mask (the reference pool's ``_mask_tree``) leaves the
+inactive lanes' every leaf as it was.
 
 ``cfg.backend == "fused"`` runs STCF/TOS/BER/score as the K1 kernel and the
 refresh as the K2 kernel (``kernels.ops``); ``"torch"`` runs their plain
@@ -20,12 +26,18 @@ PyTorch versions on any device.  On CPU tensors both are plain PyTorch.
 The random stream is JAX's threefry with the reference's key discipline
 (one split per chunk iff injecting), so BER draws are draw-exact.
 ``state_from_numpy`` / ``state_to_numpy`` carry a state across from and
-back to ``jax.device_get`` of a ``repro`` state.
+back to ``jax.device_get`` of a ``repro`` state (one stream, or a pool's
+lanes stacked on a leading axis).
+
+``RingState`` / ``CompactRingState`` are the pool's fixed-capacity device
+result rings; ``ring_push`` / ``ring_push_compact`` write one round into
+the next slot in place, with the cursors (``head``, ``count``,
+``dropped``) as device scalars, as in the reference.
 """
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Optional, Sequence, Union
+from typing import Callable, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -43,23 +55,34 @@ __all__ = [
     "DetectorState",
     "ChunkInput",
     "ChunkOutput",
+    "RingState",
+    "CompactRingState",
     "control_init",
     "detector_init",
     "detector_step",
     "detector_scan",
+    "rate_estimate_eps",
+    "ring_init",
+    "ring_push",
+    "compact_ring_init",
+    "ring_push_compact",
+    "ring_slot_order",
     "chunk_input_riders",
     "resolve_device",
+    "upload",
+    "lane_state",
+    "set_lane_state",
     "state_from_numpy",
     "state_to_numpy",
 ]
 
 
 class ControlState(NamedTuple):
-    """Degradation knobs (host values shared by the lanes of a state)."""
+    """Degradation knobs, one entry per lane (host arrays of shape (B,))."""
 
-    lut_every: int      # Harris LUT refresh interval in chunks (>= 1)
-    vdd_cap: int        # highest selectable operating-point index
-    shed: bool          # suspend LUT refresh
+    lut_every: np.ndarray   # int32 — Harris LUT refresh interval (>= 1)
+    vdd_cap: np.ndarray     # int32 — highest selectable operating point
+    shed: np.ndarray        # bool  — suspend LUT refresh
 
 
 class DetectorState(NamedTuple):
@@ -68,14 +91,19 @@ class DetectorState(NamedTuple):
     surface: torch.Tensor     # uint8  (B, H, W) — the TOS
     sae: torch.Tensor         # int32  (B, H, W) — STCF last timestamps
     lut: torch.Tensor         # float32 (B, H, W) — latest Harris response
-    lut_ready: bool           # has the LUT ever been built?
+    lut_ready: np.ndarray     # bool (B,) host — has the LUT ever been built?
     key: torch.Tensor         # int64 (B, 2) — threefry key words
-    chunk_idx: int            # chunks folded so far
+    chunk_idx: np.ndarray     # int32 (B,) host — chunks folded so far
     rate: dvfs_mod.RateState  # (B,) int32 leaves — streaming rate estimator
     kept_total: torch.Tensor  # int32 (B,)
     energy_pj: torch.Tensor   # float32 (B,)
     latency_ns: torch.Tensor  # float32 (B,)
     ctrl: ControlState
+
+
+# Tensor leaves of a DetectorState (rate's four leaves come on top).
+_TENSOR_FIELDS = ("surface", "sae", "lut", "key", "kept_total", "energy_pj",
+                  "latency_ns")
 
 
 class ChunkInput(NamedTuple):
@@ -101,13 +129,25 @@ def _online(cfg) -> bool:
     return bool(cfg.dvfs and cfg.dvfs_online)
 
 
-def control_init(cfg) -> ControlState:
+def _vdd_top(cfg) -> int:
+    """Highest operating-point index a cap may select (0 in fixed-Vdd
+    mode, where the cap is inert)."""
+    return (len(dvfs_mod.op_point_table(cfg.dvfs_cfg).caps) - 1
+            if _online(cfg) else 0)
+
+
+def _lanes(value, b: int, dtype) -> np.ndarray:
+    """A host leaf as an owned ``(b,)`` array (a scalar is broadcast)."""
+    return np.array(np.broadcast_to(np.asarray(value, dtype), (b,)))
+
+
+def control_init(cfg, lanes: int = 1) -> ControlState:
     """Neutral knobs: the config's refresh cadence, the full operating-point
     table (inert in fixed-Vdd mode), no shedding."""
-    top = len(dvfs_mod.op_point_table(cfg.dvfs_cfg).caps) - 1 \
-        if _online(cfg) else 0
-    return ControlState(lut_every=int(cfg.lut_every_chunks), vdd_cap=top,
-                        shed=False)
+    return ControlState(
+        lut_every=_lanes(int(cfg.lut_every_chunks), lanes, np.int32),
+        vdd_cap=_lanes(_vdd_top(cfg), lanes, np.int32),
+        shed=_lanes(False, lanes, np.bool_))
 
 
 def resolve_device(device) -> torch.device:
@@ -119,6 +159,29 @@ def resolve_device(device) -> torch.device:
             f"device {str(device)!r} asked for but no CUDA device is "
             f"available; pass device='cpu' to run the plain versions")
     return dev
+
+
+def upload(arr: np.ndarray, device) -> torch.Tensor:
+    """A copy of a host array on ``device``.  On CUDA it goes through
+    pinned memory and does not wait for the device (PyTorch's pinned
+    allocator keeps the staging buffer until the copy is done)."""
+    t = torch.from_numpy(np.array(arr))
+    device = torch.device(device)
+    if device.type == "cpu":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+@functools.lru_cache(maxsize=256)
+def _cached_upload(data: bytes, dtype: str, device: torch.device):
+    return upload(np.frombuffer(data, dtype=dtype), device)
+
+
+def _lanes_on(arr: np.ndarray, device) -> torch.Tensor:
+    """A small per-lane host array on ``device``, uploaded once per
+    distinct value (masks, lane lists and knobs repeat).  Read-only."""
+    arr = np.ascontiguousarray(arr)
+    return _cached_upload(arr.tobytes(), arr.dtype.str, torch.device(device))
 
 
 def detector_init(cfg, *, seed: Union[int, Sequence[int], None] = None,
@@ -140,14 +203,14 @@ def detector_init(cfg, *, seed: Union[int, Sequence[int], None] = None,
                        device=device),
         lut=torch.full((b, h, w), -torch.inf, dtype=torch.float32,
                        device=device),
-        lut_ready=False,
+        lut_ready=np.zeros(b, np.bool_),
         key=torch.stack([prng.prng_key(s, device=device) for s in seeds]),
-        chunk_idx=0,
+        chunk_idx=np.zeros(b, np.int32),
         rate=dvfs_mod.rate_state_init(b, device=device),
         kept_total=torch.zeros(b, dtype=torch.int32, device=device),
         energy_pj=zf,
         latency_ns=zf.clone(),
-        ctrl=control_init(cfg),
+        ctrl=control_init(cfg, b),
     )
 
 
@@ -160,17 +223,24 @@ def _op_table(dvfs_cfg, device: torch.device) -> dict:
             for name in ("caps", "ber", "energy_pj", "latency_ns")}
 
 
-def _operating_point(cfg, state: DetectorState, chunk: ChunkInput):
+def _operating_point(cfg, state: DetectorState, chunk: ChunkInput,
+                     vdd_cap: np.ndarray):
     """This chunk's (rate, vdd_idx, ber, energy_coef, latency_coef), per
-    lane: the online estimator's pick clamped at ``ctrl.vdd_cap``, or the
-    precomputed riders."""
+    lane: the online estimator's pick clamped at each lane's ``vdd_cap``,
+    or the precomputed riders."""
     if _online(cfg):
         tab = _op_table(cfg.dvfs_cfg, chunk.ts.device)
         rate, vdd_idx = dvfs_mod.online_vdd_from_chunk_ts(
             state.rate, chunk.ts, chunk.valid, cfg=cfg.dvfs_cfg,
             caps=tab["caps"],
         )
-        vdd_idx = torch.clamp(vdd_idx, max=state.ctrl.vdd_cap)
+        if (vdd_cap < tab["caps"].shape[0] - 1).any():
+            if (vdd_cap == vdd_cap[0]).all():
+                vdd_idx = torch.clamp(vdd_idx, max=int(vdd_cap[0]))
+            else:
+                vdd_idx = torch.minimum(
+                    vdd_idx, _lanes_on(vdd_cap.astype(np.int32),
+                                       vdd_idx.device))
         i = vdd_idx.long()
         return (rate, vdd_idx, tab["ber"][i], tab["energy_pj"][i],
                 tab["latency_ns"][i])
@@ -179,30 +249,82 @@ def _operating_point(cfg, state: DetectorState, chunk: ChunkInput):
             chunk.latency_coef)
 
 
-def _refresh_lut(cfg, state: DetectorState, surface, lut):
-    """Every ``lut_every``-th chunk (unless shed) rebuild the Harris LUT.
-    Host decision; returns (lut, do_refresh)."""
-    do_refresh = ((state.chunk_idx + 1) % state.ctrl.lut_every == 0
-                  and not state.ctrl.shed)
-    if not do_refresh:
-        return lut, False
+def _refresh_lut(cfg, state: DetectorState, surface, due: np.ndarray):
+    """Rebuild the Harris LUT of the lanes whose refresh is ``due`` (a
+    host decision), in one launch over just those lanes."""
+    if not due.any():
+        return state.lut
     harris = (ops.harris_response_op if cfg.backend == "fused"
               else harris_mod.harris_response)
-    return harris(surface, sobel_size=cfg.sobel_size,
-                  window_size=cfg.window_size, k=cfg.harris_k), True
+    kw = dict(sobel_size=cfg.sobel_size, window_size=cfg.window_size,
+              k=cfg.harris_k)
+    if due.all():
+        return harris(surface, **kw)
+    idx = _lanes_on(np.flatnonzero(due), surface.device)
+    return state.lut.index_copy(0, idx, harris(surface.index_select(0, idx),
+                                               **kw))
 
 
-def detector_step(cfg, state: DetectorState,
-                  chunk: ChunkInput) -> tuple[DetectorState, ChunkOutput]:
-    """Fold one chunk into every lane; returns the new state and outputs.
+def _gate_scores(raw: torch.Tensor, lut_ready: np.ndarray) -> torch.Tensor:
+    """Scores of lanes whose LUT was never built read ``-inf``."""
+    if lut_ready.all():
+        return raw
+    if not lut_ready.any():
+        return torch.full_like(raw, -torch.inf)
+    ready = _lanes_on(lut_ready, raw.device)
+    return torch.where(ready[:, None], raw, -torch.inf)
+
+
+def _accumulate(acc: torch.Tensor, nk: torch.Tensor,
+                coef: torch.Tensor) -> torch.Tensor:
+    """``acc + nk * coef`` in float32 with one rounding: the reference's
+    XLA contracts it into a fused multiply-add.  ``nk * coef`` is exact in
+    float64 (a count below 2**24 times a float32), so one float64 add and
+    the cast to float32 round as the FMA does while ``acc`` stays below
+    2**16 times the product."""
+    return (acc.double() + nk.double() * coef.double()).to(torch.float32)
+
+
+def _keep_inactive(active: np.ndarray, new: DetectorState,
+                   old: DetectorState) -> DetectorState:
+    """Inactive lanes keep every tensor leaf of ``old``.  The LUT is left
+    out: only active lanes refresh it."""
+    m = _lanes_on(active, old.surface.device)
+
+    def sel(n, o):
+        return torch.where(m.reshape((-1,) + (1,) * (n.dim() - 1)), n, o)
+
+    picked = {f: sel(getattr(new, f), getattr(old, f))
+              for f in _TENSOR_FIELDS if f != "lut"}
+    rate = dvfs_mod.RateState(*map(sel, new.rate, old.rate))
+    return new._replace(rate=rate, **picked)
+
+
+def detector_step(cfg, state: DetectorState, chunk: ChunkInput,
+                  mask: Optional[np.ndarray] = None
+                  ) -> tuple[DetectorState, ChunkOutput]:
+    """Fold one chunk into every lane (or the lanes of the host bool
+    ``mask``); returns the new state and outputs.
 
     The chunk block (STCF -> TOS -> BER -> score) is K1 through
     ``ops.fused_step_op`` on the ``"fused"`` backend and its plain
-    composition ``fused_step_ref`` on ``"torch"``.  Both draw the BER bits
-    here, with one key split per chunk iff injecting, as the reference does.
+    composition ``fused_step_ref`` on ``"torch"``, for all lanes in one
+    launch.  Both draw the BER bits here, with one key split per chunk iff
+    injecting, as the reference does.  K1 applies the bits to inactive
+    lanes too, so a masked step selects their old leaves back; their
+    cursors do not advance and their LUT is not rebuilt.
     """
+    b = state.surface.shape[0]
+    active = (np.ones(b, np.bool_) if mask is None
+              else _lanes(mask, b, np.bool_))
+    lut_ready = _lanes(state.lut_ready, b, np.bool_)
+    chunk_idx = _lanes(state.chunk_idx, b, np.int32)
+    lut_every = _lanes(state.ctrl.lut_every, b, np.int32)
+    shed = _lanes(state.ctrl.shed, b, np.bool_)
+    vdd_cap = _lanes(state.ctrl.vdd_cap, b, np.int32)
+
     rate, vdd_idx, ber_c, energy_coef, latency_coef = _operating_point(
-        cfg, state, chunk)
+        cfg, state, chunk, vdd_cap)
     key, bits = state.key, None
     if cfg.inject_ber:
         key, sub = prng.split(key)
@@ -218,22 +340,24 @@ def detector_step(cfg, state: DetectorState,
     )
 
     n_kept = keep.sum(-1, dtype=torch.int32)
-    scores = raw if state.lut_ready else torch.full_like(raw, -torch.inf)
-    lut, do_refresh = _refresh_lut(cfg, state, surface, state.lut)
-    nk = n_kept.to(torch.float32)
+    scores = _gate_scores(raw, lut_ready)
+    due = ((chunk_idx + 1) % lut_every == 0) & ~shed & active
+    lut = _refresh_lut(cfg, state, surface, due)
     new_state = DetectorState(
         surface=surface,
         sae=sae,
         lut=lut,
-        lut_ready=state.lut_ready or do_refresh,
+        lut_ready=lut_ready | due,
         key=key,
-        chunk_idx=state.chunk_idx + 1,
+        chunk_idx=chunk_idx + active.astype(np.int32),
         rate=rate,
         kept_total=state.kept_total + n_kept,
-        energy_pj=state.energy_pj + nk * energy_coef,
-        latency_ns=state.latency_ns + nk * latency_coef,
+        energy_pj=_accumulate(state.energy_pj, n_kept, energy_coef),
+        latency_ns=_accumulate(state.latency_ns, n_kept, latency_coef),
         ctrl=state.ctrl,
     )
+    if not active.all():
+        new_state = _keep_inactive(active, new_state, state)
     return new_state, ChunkOutput(scores=scores, keep=keep, n_kept=n_kept,
                                   vdd_idx=vdd_idx)
 
@@ -257,6 +381,16 @@ def detector_scan(cfg, state: DetectorState,
     return state, ChunkOutput(*(torch.stack(parts) for parts in zip(*outs)))
 
 
+def rate_estimate_eps(prev1, prev2, dvfs_cfg) -> float:
+    """Events/s read-out of the streaming rate estimator's closed pair
+    (host arithmetic, the reference's formula): both counters saturate at
+    ``2^counter_bits - 1`` and the divide is float32, as the step's."""
+    sat = (1 << dvfs_cfg.counter_bits) - 1
+    pair = min(int(prev1), sat) + min(int(prev2), sat)
+    est_mpus = np.float32(pair) / np.float32(dvfs_cfg.tw_us)
+    return float(est_mpus) * 1e6
+
+
 def chunk_input_riders(
     n_chunks: int, vdd_arr: Optional[np.ndarray], cfg
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -273,19 +407,14 @@ def chunk_input_riders(
     return ber, e, lat
 
 
-def _shared_host(values, name):
-    arr = np.asarray(values).reshape(-1)
-    if not (arr == arr[0]).all():
-        raise ValueError(f"{name} differs across lanes; the port's lanes "
-                         "share it")
-    return arr[0].item()
-
-
 def state_from_numpy(jstate, *, device="cuda") -> DetectorState:
-    """A port state on ``device`` from ``jax.device_get`` of a ``repro``
-    DetectorState (one stream, or lanes stacked on a leading axis)."""
+    """A port state on ``device`` from a state of numpy arrays in the
+    reference's layout: ``jax.device_get`` of a ``repro`` DetectorState,
+    one stream or a pool's lanes stacked on a leading axis, or
+    ``state_to_numpy`` of a port state.  Fields are read by name."""
     device = resolve_device(device)
     single = np.asarray(jstate.surface).ndim == 2
+    b = 1 if single else np.asarray(jstate.surface).shape[0]
 
     def dev(a, dtype):
         t = torch.as_tensor(np.array(a), dtype=dtype, device=device)
@@ -295,26 +424,26 @@ def state_from_numpy(jstate, *, device="cuda") -> DetectorState:
         surface=dev(jstate.surface, torch.uint8),
         sae=dev(jstate.sae, torch.int32),
         lut=dev(jstate.lut, torch.float32),
-        lut_ready=bool(_shared_host(jstate.lut_ready, "lut_ready")),
+        lut_ready=_lanes(jstate.lut_ready, b, np.bool_),
         key=dev(np.asarray(jstate.key).astype(np.int64), torch.int64),
-        chunk_idx=int(_shared_host(jstate.chunk_idx, "chunk_idx")),
+        chunk_idx=_lanes(jstate.chunk_idx, b, np.int32),
         rate=dvfs_mod.RateState(*(dev(r, torch.int32)
                                   for r in jstate.rate)),
         kept_total=dev(jstate.kept_total, torch.int32),
         energy_pj=dev(jstate.energy_pj, torch.float32),
         latency_ns=dev(jstate.latency_ns, torch.float32),
         ctrl=ControlState(
-            lut_every=int(_shared_host(jstate.ctrl.lut_every, "lut_every")),
-            vdd_cap=int(_shared_host(jstate.ctrl.vdd_cap, "vdd_cap")),
-            shed=bool(_shared_host(jstate.ctrl.shed, "shed")),
+            lut_every=_lanes(jstate.ctrl.lut_every, b, np.int32),
+            vdd_cap=_lanes(jstate.ctrl.vdd_cap, b, np.int32),
+            shed=_lanes(jstate.ctrl.shed, b, np.bool_),
         ),
     )
 
 
 def state_to_numpy(state: DetectorState) -> DetectorState:
-    """The state as numpy arrays in the reference's layout and dtypes (the
-    lane axis dropped for a one-lane state; host values broadcast to it
-    otherwise)."""
+    """The state as owned numpy arrays in the reference's layout and
+    dtypes: a one-lane state drops the lane axis (host leaves become 0-d),
+    a B-lane state is the reference pool's stacked ``(B, ...)`` layout."""
     b = state.surface.shape[0]
     single = b == 1
 
@@ -323,8 +452,8 @@ def state_to_numpy(state: DetectorState) -> DetectorState:
         return a[0] if single else a
 
     def host(v, dtype):
-        a = np.asarray(v, dtype)
-        return a if single else np.full((b,), v, dtype)
+        a = _lanes(v, b, dtype)
+        return a[0].copy() if single else a
 
     return DetectorState(
         surface=arr(state.surface, np.uint8),
@@ -343,3 +472,172 @@ def state_to_numpy(state: DetectorState) -> DetectorState:
             shed=host(state.ctrl.shed, np.bool_),
         ),
     )
+
+
+def lane_state(state: DetectorState, lane: int) -> DetectorState:
+    """Lane ``lane`` of ``state`` as a one-lane state (tensor leaves are
+    views of ``state``'s; host leaves are copies)."""
+    sl = slice(lane, lane + 1)
+    host = {f: _lanes(getattr(state, f), state.surface.shape[0],
+                      dt)[sl].copy()
+            for f, dt in (("lut_ready", np.bool_), ("chunk_idx", np.int32))}
+    ctrl = ControlState(*(
+        _lanes(v, state.surface.shape[0], dt)[sl].copy()
+        for v, dt in zip(state.ctrl, (np.int32, np.int32, np.bool_))))
+    return state._replace(
+        rate=dvfs_mod.RateState(*(r[sl] for r in state.rate)), ctrl=ctrl,
+        **{f: getattr(state, f)[sl] for f in _TENSOR_FIELDS}, **host)
+
+
+def set_lane_state(states: DetectorState, lane: int,
+                   one: DetectorState) -> DetectorState:
+    """``states`` with lane ``lane`` replaced by the one-lane state ``one``
+    (the reference pool's ``at[lane].set``).  The tensor leaves of
+    ``states`` are written in place; the host leaves are new arrays."""
+    for f in _TENSOR_FIELDS:
+        getattr(states, f)[lane].copy_(getattr(one, f)[0])
+    for dst, src in zip(states.rate, one.rate):
+        dst[lane].copy_(src[0])
+    b = states.surface.shape[0]
+
+    def put(many, single, dtype):
+        out = _lanes(many, b, dtype)
+        out[lane] = np.asarray(single, dtype).reshape(-1)[0]
+        return out
+
+    dts = (np.int32, np.int32, np.bool_)
+    return states._replace(
+        lut_ready=put(states.lut_ready, one.lut_ready, np.bool_),
+        chunk_idx=put(states.chunk_idx, one.chunk_idx, np.int32),
+        ctrl=ControlState(*(put(m, o, dt) for m, o, dt in
+                            zip(states.ctrl, one.ctrl, dts))))
+
+
+# -- result rings ---------------------------------------------------------
+
+
+class RingState(NamedTuple):
+    """Fixed-capacity device result ring of a pool bucket.
+
+    The pool pushes one slot per executed round (the lane-stacked
+    ``ChunkOutput`` plus the round's lane mask and per-lane valid counts);
+    the host fetches once per drain and walks the slots oldest-first.
+    Pushing onto a full ring overwrites the oldest slot and counts it in
+    ``dropped``.  The cursors are int32 device scalars updated on the
+    device by the push, as in the reference; the owner zeroes ``count``
+    and ``dropped`` at every drain.
+    """
+
+    scores: torch.Tensor   # (R, lanes, chunk) float32
+    keep: torch.Tensor     # (R, lanes, chunk) bool
+    n_kept: torch.Tensor   # (R, lanes) int32
+    vdd_idx: torch.Tensor  # (R, lanes) int32
+    n_valid: torch.Tensor  # (R, lanes) int32 — valid events that round
+    mask: torch.Tensor     # (R, lanes) bool — lanes that folded that round
+    head: torch.Tensor     # int32 scalar — next slot to write
+    count: torch.Tensor    # int32 scalar — undrained slots (saturates at R)
+    dropped: torch.Tensor  # int32 scalar — rounds overwritten before a drain
+
+
+class CompactRingState(NamedTuple):
+    """``RingState`` plus each slot-lane's first ``cap`` kept events as
+    ``(event index, score)`` records (K3), so a drain can fetch the
+    records instead of the dense rows.  The dense rows are still written
+    every push: they are the lossless fallback for ``n_kept > cap``."""
+
+    scores: torch.Tensor
+    keep: torch.Tensor
+    n_kept: torch.Tensor   # doubles as the record count
+    vdd_idx: torch.Tensor
+    n_valid: torch.Tensor
+    mask: torch.Tensor
+    head: torch.Tensor
+    count: torch.Tensor
+    dropped: torch.Tensor
+    c_idx: torch.Tensor    # (R, lanes, cap) int32
+    c_val: torch.Tensor    # (R, lanes, cap) float32
+
+
+def ring_init(rounds: int, lanes: int, chunk: int, *,
+              device="cuda") -> RingState:
+    """Empty ring of ``rounds`` slots for a ``lanes``-wide bucket of
+    ``chunk``-event rounds."""
+    if rounds < 1:
+        raise ValueError("ring needs at least one slot")
+    device = resolve_device(device)
+
+    def z(*shape, dtype=torch.int32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return RingState(
+        scores=z(rounds, lanes, chunk, dtype=torch.float32),
+        keep=z(rounds, lanes, chunk, dtype=torch.bool),
+        n_kept=z(rounds, lanes), vdd_idx=z(rounds, lanes),
+        n_valid=z(rounds, lanes), mask=z(rounds, lanes, dtype=torch.bool),
+        head=z(), count=z(), dropped=z(),
+    )
+
+
+def compact_ring_init(rounds: int, lanes: int, chunk: int, cap: int, *,
+                      device="cuda") -> CompactRingState:
+    """Empty compact ring: the dense ring plus ``(cap,)`` records per
+    slot-lane."""
+    if not 1 <= cap <= chunk:
+        raise ValueError(f"compact cap must be in [1, chunk], got {cap}")
+    dense = ring_init(rounds, lanes, chunk, device=device)
+    return CompactRingState(
+        *dense,
+        c_idx=torch.zeros((rounds, lanes, cap), dtype=torch.int32,
+                          device=dense.head.device),
+        c_val=torch.full((rounds, lanes, cap), -torch.inf,
+                         dtype=torch.float32, device=dense.head.device),
+    )
+
+
+def _write_slot(ring, pairs) -> None:
+    """Write each ``(buffer, value)`` at the slot ``ring.head`` points to,
+    then advance the device cursors."""
+    rounds = ring.scores.shape[0]
+    slot = ring.head.long().reshape(1)
+    for buf, val in pairs:
+        buf.index_copy_(0, slot, val.unsqueeze(0))
+    ring.dropped.add_((ring.count == rounds).to(torch.int32))
+    ring.count.add_(1).clamp_(max=rounds)
+    ring.head.add_(1).remainder_(rounds)
+
+
+def ring_push(ring: RingState, outs: ChunkOutput, mask: torch.Tensor,
+              n_valid: torch.Tensor) -> RingState:
+    """Append one executed round to the ring, in place; returns ``ring``.
+
+    ``outs`` is the round's lane-stacked ``ChunkOutput``, ``mask`` /
+    ``n_valid`` its ``(lanes,)`` device rows.  The reference's ``active``
+    flag has no counterpart: the pool never pushes its padded rounds.
+    """
+    _write_slot(ring, ((ring.scores, outs.scores), (ring.keep, outs.keep),
+                       (ring.n_kept, outs.n_kept),
+                       (ring.vdd_idx, outs.vdd_idx),
+                       (ring.n_valid, n_valid), (ring.mask, mask)))
+    return ring
+
+
+def ring_push_compact(ring: CompactRingState, outs: ChunkOutput,
+                      mask: torch.Tensor, n_valid: torch.Tensor, *,
+                      compact_fn: Callable) -> CompactRingState:
+    """``ring_push`` that also stores the round's records:
+    ``compact_fn(scores, keep) -> (idx, val, count)`` (the pool binds
+    ``ops.compact_slots_op``, K3)."""
+    c_idx, c_val, _ = compact_fn(outs.scores, outs.keep)
+    _write_slot(ring, ((ring.scores, outs.scores), (ring.keep, outs.keep),
+                       (ring.n_kept, outs.n_kept),
+                       (ring.vdd_idx, outs.vdd_idx),
+                       (ring.n_valid, n_valid), (ring.mask, mask),
+                       (ring.c_idx, c_idx), (ring.c_val, c_val)))
+    return ring
+
+
+def ring_slot_order(head: int, count: int, rounds: int) -> list[int]:
+    """Host helper: slot indices of the ``count`` undrained rounds, oldest
+    first (the order drains must distribute results in)."""
+    return [(int(head) - int(count) + i) % int(rounds)
+            for i in range(int(count))]

@@ -5,6 +5,8 @@ plain PyTorch version.
   patch update and BER write errors (``csrc/fused_step.cu``).
 * ``harris_conv`` — K2: the Harris response map that refreshes the corner
   LUT (``csrc/harris.cu``).
+* ``compact``     — K3: stream compaction of result rows into kept-event
+  records for the pool's compact readout (``csrc/compact.cu``).
 * ``ops``         — the dispatching wrappers: a CPU tensor gets the plain
   version, a CUDA tensor gets the kernel (or an error).  Each counts its
   kernel launches.

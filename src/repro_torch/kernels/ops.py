@@ -1,7 +1,7 @@
 """The dispatching wrappers the detector step calls.
 
-``fused_step_op`` (K1) and ``harris_response_op`` (K2) take the tensor's
-device as the choice of spelling: a CPU tensor gets the plain PyTorch
+``fused_step_op`` (K1), ``harris_response_op`` (K2) and
+``compact_slots_op`` (K3) take the tensor's device as the choice of spelling: a CPU tensor gets the plain PyTorch
 version, a CUDA tensor gets the hand-written kernel — or an error; there is
 no fallback from a CUDA tensor to a plain version.  Surfaces may be one
 ``(H, W)`` lane or a ``(B, H, W)`` batch.
@@ -12,14 +12,16 @@ kernels.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
-from repro_torch.kernels import fused_step, harris_conv
+from repro_torch.kernels import compact, fused_step, harris_conv
 
-__all__ = ["fused_step_op", "harris_response_op", "LAUNCHES",
-           "reset_launch_counts"]
+__all__ = ["fused_step_op", "harris_response_op", "compact_slots_op",
+           "LAUNCHES", "reset_launch_counts"]
 
-LAUNCHES = {"fused_step": 0, "harris": 0}
+LAUNCHES = {"fused_step": 0, "harris": 0, "compact": 0}
 
 
 def reset_launch_counts() -> None:
@@ -72,3 +74,26 @@ def harris_response_op(tos: torch.Tensor, *, sobel_size: int = 5,
     out = harris_conv.harris_cuda(tos[None] if single else tos, **kw)
     LAUNCHES["harris"] += 1
     return out[0] if single else out
+
+
+def compact_slots_op(scores: torch.Tensor, keep: torch.Tensor, *, cap: int):
+    """Pack result rows into kept-event records (K3).
+
+    ``scores`` / ``keep`` carry any leading shape over a trailing event
+    axis ``(..., E)``; returns ``(idx (..., cap) int32, val (..., cap)
+    float32, count (...) int32)``: record ``j`` of a row is its j-th kept
+    event in stream order, and ``count`` is the total kept (``count > cap``
+    flags overflow; the records stop at ``cap``).
+    """
+    lead, e = tuple(scores.shape[:-1]), scores.shape[-1]
+    flat_s = scores.reshape(math.prod(lead), e)
+    flat_k = keep.reshape(math.prod(lead), e)
+    if _device_type(scores) == "cpu":
+        idx, val, cnt = compact.compact_ref(flat_s, flat_k, cap=cap)
+    else:
+        idx, val, cnt = compact.compact_cuda(
+            flat_s.to(torch.float32).contiguous(),
+            flat_k.to(torch.bool).contiguous(), cap=cap)
+        LAUNCHES["compact"] += 1
+    return (idx.reshape(*lead, cap), val.reshape(*lead, cap),
+            cnt.reshape(lead))

@@ -1,0 +1,1194 @@
+"""Data plane of the multi-camera pool (``repro.serve.runtime``).
+
+``PoolRuntime`` owns the pool's mechanisms — per-bucket executors, the
+device result rings and their reader thread, the lane-stacked detector
+state, host re-chunk buffers — and exposes them as verbs (``connect`` a
+lane into a bucket, ``feed`` it, ``pump_pass`` an ordered list of buckets,
+``poll`` / ``flush`` its results).  Which bucket a lane belongs in and
+the pump order are policy (``serve.scheduler``), wired in by the
+``DetectorPool`` façade.
+
+**Executors.**  A bucket's executor is a host loop, not a compiled
+program: for each ready round, in round order, it runs the lane-batched
+``detector_step`` over all lanes (K1 in one launch, K2 over the lanes
+whose LUT refresh is due), keeps the inactive lanes' state (the masked
+select), and pushes the round into the bucket's live device ring — with
+``readout="compact"`` through K3.  Rounds are gathered ``ring_rounds`` at
+a time into a block and uploaded as the reference uploads them: a block
+with one ready round as ``(lanes, chunk)`` slabs, any other as padded
+``(ring_rounds, lanes, chunk)`` slabs whose padded rounds the host skips.
+Nothing is compiled, so ``compile_cache_sizes`` counts, per bucket and
+block shape, the distinct shape signatures of the device slabs the executor
+was handed (what a compiled or captured executor would need one build per);
+``executors_compiled_once`` holds while each count is at most 1, so
+membership, occupancy and lane placement never change those shapes.
+
+**Rings and drains.**  The host fetches a ring once per drain, in one
+transfer, and walks its slots oldest-first.  ``on_overflow="drain"``
+drains before a block that would not fit (lossless backpressure);
+``"drop_oldest"`` lets a full ring overwrite its oldest slot and counts
+the loss.  ``drain_mode="sync"`` fetches inline on the calling thread;
+``"async"`` gives each bucket ``ring_depth`` rings: draining *seals* the
+live ring (a spare becomes live) and hands it, with a CUDA event recorded
+after its last push, to a reader thread.  The reader waits on that event
+from its own CUDA stream, copies the leaves into pinned host memory,
+synchronises its stream, and only then takes the lock to distribute and
+return the ring to the spares.  ``readout="compact"`` fetches each slot's
+kept-event records (K3) instead of the dense rows, and the dense row of a
+slot-lane whose kept count overflowed the records in a second transfer;
+the host densify reproduces the dense slot byte for byte.
+
+**Pipelined pump.**  A pass *stages* a block (host gather plus its H2D
+upload through the pinned ``HostStager``) and *dispatches* it (ring room,
+then the executor) up to ``pipeline_depth - 1`` blocks later, in stage
+order, so the next block's gather and upload overlap the device's work.
+A timebase rebase flushes the staged blocks first.
+
+**Membership** is an active mask over ``capacity`` lanes: join and leave
+are data, never a new executor.  Per lane the runtime keeps what a
+``StreamingDetector`` keeps (re-chunk buffer, int64 timebase, float64
+books, result queue), so a lane's results equal a standalone session's and
+``run_pipeline``'s on its stream.
+
+**Thread safety.**  One re-entrant lock guards all mutable state; the
+reader takes it only to distribute and recycle, never across a transfer.
+A pump token serializes whole pump passes.
+
+Not ported yet (``ROADMAP.md``, M8): live bucket migration, the knob
+writes, and the per-pump observe/decide loop; under the static policy the
+stats keys of those mechanisms are truthful zeros.  The card is one
+device: there is no lane mesh.
+"""
+from __future__ import annotations
+
+import collections
+import queue
+import threading
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch import obs as obs_mod
+from repro_torch.core import dvfs as dvfs_mod
+from repro_torch.core import pipeline as pipeline_mod
+from repro_torch.core import state as state_mod
+from repro_torch.kernels import fused_step, ops
+from repro_torch.launch import sharding as sharding_mod
+from repro_torch.obs.schema import POOL_BUCKET_STATS, POOL_STATS
+from repro_torch.serve import streaming as streaming_mod
+
+__all__ = ["PoolRuntime", "EVENT_SLOT_BYTES"]
+
+_OVERFLOW_POLICIES = ("drain", "drop_oldest")
+_DRAIN_MODES = ("sync", "async")
+_READOUTS = ("dense", "compact")
+_STOP = object()          # reader-thread shutdown sentinel
+
+# H2D bytes per uploaded chunk slot: xy int32 pair + ts int32 + valid bool.
+EVENT_SLOT_BYTES = 13
+
+
+class _Lane:
+    """Host-side bookkeeping for one pool slot."""
+
+    __slots__ = ("bucket", "buf_xy", "buf_ts", "base", "results", "n_events",
+                 "n_chunks", "kept_total", "energy_pj", "latency_ns",
+                 "vdd_trace", "events_folded", "r_win", "r_cur", "r_p1",
+                 "r_p2", "qos")
+
+    def __init__(self, bucket: int, *, qos: str = "standard"):
+        self.bucket = bucket
+        self.qos = qos
+        self.buf_xy = np.zeros((0, 2), np.int32)
+        self.buf_ts = np.zeros((0,), np.int64)
+        self.base: Optional[int] = None
+        self.results: list[tuple[np.ndarray, np.ndarray]] = []
+        self.n_events = 0
+        self.n_chunks = 0
+        self.kept_total = 0
+        self.energy_pj = 0.0
+        self.latency_ns = 0.0
+        self.vdd_trace: list[float] = []
+        self.events_folded = 0          # events consumed by executed rounds
+        # Host twin of the 3-counter DVFS rate estimator (half-window
+        # binning of *fed* timestamps; same rotation the device step does).
+        self.r_win = 0
+        self.r_cur = 0
+        self.r_p1 = 0
+        self.r_p2 = 0
+
+    def rate_update(self, ts: np.ndarray, half: int) -> None:
+        """Fold one time-sorted slab into the rate twin (only the last three
+        half-windows can ever be read again, exactly like
+        ``dvfs.online_vdd_from_chunk_ts``)."""
+        w = ts // half
+        wl = int(w[-1])
+        n0 = int(np.count_nonzero(w == wl))
+        n1 = int(np.count_nonzero(w == wl - 1))
+        n2 = int(np.count_nonzero(w == wl - 2))
+        d = wl - self.r_win
+        if d == 0:
+            cur, p1, p2 = self.r_cur + n0, self.r_p1 + n1, self.r_p2 + n2
+        elif d == 1:
+            cur, p1, p2 = n0, self.r_cur + n1, self.r_p1 + n2
+        elif d == 2:
+            cur, p1, p2 = n0, n1, self.r_cur + n2
+        else:
+            cur, p1, p2 = n0, n1, n2
+        self.r_win, self.r_cur, self.r_p1, self.r_p2 = wl, cur, p1, p2
+
+
+class _Round:
+    """One collected pump round (host arrays, lane-stacked) for a bucket."""
+
+    __slots__ = ("xy", "ts", "valid", "mask", "n_valid")
+
+    def __init__(self, xy, ts, valid, mask, n_valid):
+        self.xy, self.ts, self.valid = xy, ts, valid
+        self.mask, self.n_valid = mask, n_valid
+
+
+class _StagedBlock:
+    """One block whose upload has started but whose rounds have not
+    run: the unit of the pump's stage-ahead deque.  ``xy`` / ``ts`` /
+    ``valid`` / ``mask`` / ``n_valid`` are device tensors with a leading
+    round axis (none when ``single``); ``masks`` are the host lane masks of
+    the ``n`` real rounds."""
+
+    __slots__ = ("bucket", "n", "single", "xy", "ts", "valid", "mask",
+                 "n_valid", "masks")
+
+    def __init__(self, bucket, n, single, xy, ts, valid, mask, n_valid,
+                 masks):
+        self.bucket, self.n, self.single = bucket, n, single
+        self.xy, self.ts, self.valid = xy, ts, valid
+        self.mask, self.n_valid, self.masks = mask, n_valid, masks
+
+    def round(self, i: int):
+        """Round ``i``'s device rows ``(xy, ts, valid, mask, n_valid)``."""
+        if self.single:
+            return self.xy, self.ts, self.valid, self.mask, self.n_valid
+        return (self.xy[i], self.ts[i], self.valid[i], self.mask[i],
+                self.n_valid[i])
+
+
+class PoolRuntime:
+    """Mechanics of a fixed-capacity camera pool: per-bucket executors over
+    the lane-stacked state, device result rings with sync or async drain,
+    dense or compact readout, and a pipelined pump.  See the module
+    docstring; placement comes from outside (``DetectorPool``)."""
+
+    def __init__(self, cfg, capacity: int, *, seed: int = 0,
+                 ring_rounds: int = 8,
+                 buckets: Optional[tuple] = None,
+                 on_overflow: str = "drain",
+                 shard: object = "auto",
+                 drain_mode: str = "async",
+                 ring_depth: int = 2,
+                 pipeline_depth: int = 2,
+                 readout: str = "dense",
+                 compact_cap: Optional[int] = None,
+                 metrics: Optional[obs_mod.MetricsRegistry] = None):
+        streaming_mod._check_streamable(cfg)
+        if capacity < 1:
+            raise ValueError("capacity must be >= 1")
+        if ring_rounds < 1:
+            raise ValueError("ring_rounds must be >= 1")
+        if pipeline_depth < 1:
+            raise ValueError(
+                "pipeline_depth must be >= 1 (1 = unpipelined: every block "
+                "dispatches as soon as it is staged)"
+            )
+        if on_overflow not in _OVERFLOW_POLICIES:
+            raise ValueError(
+                f"on_overflow must be one of {_OVERFLOW_POLICIES}, "
+                f"got {on_overflow!r}"
+            )
+        if drain_mode not in _DRAIN_MODES:
+            raise ValueError(
+                f"drain_mode must be one of {_DRAIN_MODES}, "
+                f"got {drain_mode!r}"
+            )
+        if ring_depth < 2:
+            raise ValueError(
+                "ring_depth must be >= 2 (one live ring plus at least one "
+                "spare for the reader)"
+            )
+        if readout not in _READOUTS:
+            raise ValueError(
+                f"readout must be one of {_READOUTS}, got {readout!r}"
+            )
+        if compact_cap is not None and int(compact_cap) < 1:
+            raise ValueError("compact_cap must be >= 1")
+        if shard is True:
+            raise ValueError(
+                "shard=True asks for a lane mesh over several devices; the "
+                "port serves a pool on a single card (shard='auto')")
+        if buckets is None:
+            buckets = (cfg.chunk,)
+        buckets = tuple(sorted({int(b) for b in buckets}))
+        if any(b < 1 for b in buckets):
+            raise ValueError("chunk buckets must be positive")
+        if buckets[-1] > fused_step.MAX_EVENTS:
+            raise ValueError(
+                f"chunk bucket {buckets[-1]} exceeds the {fused_step.MAX_EVENTS}"
+                f" events K1 takes per chunk")
+        self._cfg = cfg
+        self._device = state_mod.resolve_device(cfg.device)
+        self._capacity = capacity
+        self._seed = seed
+        self._ring_rounds = ring_rounds
+        self._buckets = buckets
+        self._overflow = on_overflow
+        self._drain_mode = drain_mode
+        self._ring_depth = ring_depth
+        self._pipeline_depth = int(pipeline_depth)
+        self._readout = readout
+        # Per-bucket record capacity: chunk/8 by default (corners are
+        # sparse); an explicit compact_cap clamps to the bucket.
+        self._compact_caps = {
+            b: (max(1, b // 8) if compact_cap is None
+                else max(1, min(int(compact_cap), b)))
+            for b in buckets
+        }
+        self._half_us = int(cfg.dvfs_cfg.half_us)
+        self._online = bool(cfg.dvfs and cfg.dvfs_online)
+        self._tab = dvfs_mod.op_point_table(cfg.dvfs_cfg)
+        self._phys = capacity
+        vdd = None if self._online else np.full((1,), cfg.vdd, np.float64)
+        self._riders = tuple(
+            state_mod.upload(np.full((self._phys,), r[0], np.float32),
+                             self._device)
+            for r in state_mod.chunk_input_riders(1, vdd, cfg))
+        self._tcfg = {b: pipeline_mod._trace_cfg(cfg, chunk=b)
+                      for b in buckets}
+
+        self._lock = threading.RLock()
+        self._cv = threading.Condition(self._lock)
+        self._closed = False
+
+        self._states = state_mod.detector_init(
+            cfg, seed=[seed + i for i in range(self._phys)],
+            device=self._device)
+        self._active = np.zeros((self._phys,), bool)
+        self._lanes: list[Optional[_Lane]] = [None] * self._phys
+
+        self._stager = sharding_mod.HostStager(self._device,
+                                               depth=self._pipeline_depth)
+
+        # -- per-bucket runtime: ring-of-rings + executor use --------------
+        self._rings: dict[int, state_mod.RingState] = {}    # live ring
+        self._spares: dict[int, collections.deque] = {}
+        self._inflight: dict[int, int] = {}       # sealed rings being fetched
+        self._executed: dict[int, dict] = {}      # slab signatures run
+        for b in buckets:
+            self._rings[b] = self._make_ring(b)
+            self._spares[b] = collections.deque(
+                self._make_ring(b) for _ in
+                range(ring_depth - 1 if drain_mode == "async" else 0)
+            )
+            self._inflight[b] = 0
+            self._executed[b] = ({"block": set(), "single": set()}
+                                 if ring_rounds > 1 else {"block": set()})
+
+        self._metrics = (metrics if metrics is not None
+                         else obs_mod.MetricsRegistry(namespace="pool"))
+        self._declare_metrics(buckets)
+        self._pass_dispatches = 0  # blocks dispatched in the current pass
+        self._busy_probe = None    # CUDA event after the last dispatch
+        self._pump_busy = False
+
+        self._reader_exc: Optional[BaseException] = None
+        self._sealed_q: Optional[queue.Queue] = None
+        self._reader: Optional[threading.Thread] = None
+        if drain_mode == "async":
+            self._sealed_q = queue.Queue()
+            self._reader = threading.Thread(
+                target=self._reader_loop, daemon=True,
+                name="PoolRuntime-reader",
+            )
+            self._reader.start()
+
+    # -- metrics ------------------------------------------------------------
+
+    def _declare_metrics(self, buckets: tuple) -> None:
+        """Declare every runtime witness on the registry and bind its
+        handle(s), as the reference does; the counters of mechanisms not
+        ported yet (knob writes, observations, migrations) stay at 0."""
+        reg = self._metrics
+        p, bk = POOL_STATS, POOL_BUCKET_STATS
+
+        def ctr(name):
+            return reg.counter(name, p[name])
+
+        self._m_host_fetches = ctr("host_fetches")
+        self._m_rounds_executed = ctr("rounds_executed")
+        self._m_drain_wait = ctr("pump_drain_wait_s")
+        self._m_forced_drains = ctr("pump_forced_drains")
+        self._m_stages = ctr("pump_stages")
+        self._m_stages_overlapped = ctr("pump_stages_overlapped")
+        self._m_stage_s = ctr("pump_stage_s")
+        self._m_stage_hidden_s = ctr("pump_stage_hidden_s")
+        self._m_ctrl_writes = ctr("ctrl_batched_writes")
+        self._m_ctrl_coalesced = ctr("ctrl_actions_coalesced")
+        self._m_obs_rebuilds = ctr("observation_rebuilds")
+        self._m_obs_reuses = ctr("observation_reuses")
+        self._m_migrations = ctr("migrations_total")
+        # D2H accounting, incremented inside the fetch paths (which run on
+        # the reader thread in async mode; registry handles lock
+        # themselves).
+        self._m_d2h_bytes = ctr("d2h_bytes")
+        self._m_d2h_saved = ctr("d2h_bytes_saved")
+        self._m_d2h_overflow = ctr("d2h_compact_overflow_slots")
+
+        def per_bucket(metric):
+            return {b: metric.labels(bucket=b) for b in buckets}
+
+        lbl = ("bucket",)
+        self._m_h2d_slots = per_bucket(
+            reg.counter("h2d_event_slots", bk["h2d_event_slots"], lbl))
+        self._m_h2d_valid = per_bucket(
+            reg.counter("h2d_valid_events", bk["h2d_valid_events"], lbl))
+        self._m_ring_count = per_bucket(
+            reg.gauge("ring_rounds_buffered", bk["ring_rounds_buffered"],
+                      lbl))
+        self._m_sealed = per_bucket(
+            reg.gauge("ring_sealed_rounds", bk["ring_sealed_rounds"], lbl))
+        self._m_dropped_dev = per_bucket(
+            reg.counter("dropped_rounds_confirmed",
+                        p["dropped_rounds_confirmed"], lbl))
+        self._m_dropped_pred = per_bucket(
+            reg.gauge("dropped_rounds_predicted",
+                      "overflow drops predicted for undrained rounds", lbl))
+        self._m_last_drain_wait = per_bucket(
+            reg.gauge("last_drain_wait_s",
+                      "wall seconds of this bucket's last forced drain",
+                      lbl))
+
+    @property
+    def metrics(self) -> obs_mod.MetricsRegistry:
+        """The pool-scoped metrics registry (attach sinks here)."""
+        return self._metrics
+
+    # -- lifecycle ----------------------------------------------------------
+
+    def close(self) -> None:
+        """Stop the reader thread (async mode).  Rounds still sealed or
+        buffered on device are abandoned — ``flush`` the lanes first if
+        their results matter.  Idempotent; the runtime rejects further use.
+        """
+        with self._lock:
+            if self._closed:
+                return
+            self._closed = True
+        if self._reader is not None:
+            self._sealed_q.put(_STOP)
+            self._reader.join(timeout=30)
+
+    def __del__(self):  # best-effort: don't leak the reader thread
+        try:
+            self.close()
+        except Exception:
+            pass
+
+    def _check_open(self) -> None:
+        if self._closed:
+            raise RuntimeError("DetectorPool is closed")
+        if self._reader_exc is not None:
+            raise RuntimeError(
+                "DetectorPool reader thread failed; results since the last "
+                "successful drain are lost and the pool cannot continue"
+            ) from self._reader_exc
+
+    # -- executors and rings --------------------------------------------------
+
+    def _make_ring(self, bucket: int) -> state_mod.RingState:
+        if self._readout == "compact":
+            return state_mod.compact_ring_init(
+                self._ring_rounds, self._phys, bucket,
+                self._compact_caps[bucket], device=self._device)
+        return state_mod.ring_init(self._ring_rounds, self._phys, bucket,
+                                   device=self._device)
+
+    def _push(self, bucket: int, outs, mask, n_valid) -> None:
+        """Push one executed round into the bucket's live ring (compact
+        readout: through K3, ``ops.compact_slots_op``)."""
+        ring = self._rings[bucket]
+        if self._readout == "compact":
+            cap = self._compact_caps[bucket]
+            state_mod.ring_push_compact(
+                ring, outs, mask, n_valid,
+                compact_fn=lambda s, k: ops.compact_slots_op(s, k, cap=cap))
+        else:
+            state_mod.ring_push(ring, outs, mask, n_valid)
+
+    @staticmethod
+    def _reset_ring(ring: state_mod.RingState) -> state_mod.RingState:
+        """Mark a drained ring empty (count/dropped -> 0) without touching
+        its data buffers."""
+        ring.count.zero_()
+        ring.dropped.zero_()
+        return ring
+
+    # -- membership ---------------------------------------------------------
+
+    def connect(self, bucket: int, seed: Optional[int] = None,
+                qos: str = "standard") -> int:
+        """Claim a free lane in ``bucket`` (a configured chunk-size bucket)
+        for a new camera session; returns the lane id.  The lane starts
+        from a fresh state at the config's neutral knobs."""
+        with self._lock:
+            self._check_open()
+            if bucket not in self._buckets:
+                raise ValueError(
+                    f"{bucket} is not a configured bucket ({self._buckets})"
+                )
+            free = np.flatnonzero(~self._active[:self._capacity])
+            if not free.size:
+                raise RuntimeError(f"pool full ({self._capacity} sessions)")
+            lane = int(free[0])
+            fresh = state_mod.detector_init(
+                self._cfg, seed=self._seed + lane if seed is None else seed,
+                device=self._device)
+            self._states = state_mod.set_lane_state(self._states, lane,
+                                                    fresh)
+            self._active[lane] = True
+            self._lanes[lane] = _Lane(bucket, qos=str(qos))
+            return lane
+
+    def disconnect(self, lane: int) -> dict:
+        """Release a lane; returns its final accounting stats.  Undrained
+        ring slots referencing the lane are drained first (waiting for the
+        reader in async mode), so the stats are complete and a later
+        session reusing the slot inherits nothing."""
+        with self._lock:
+            self._check_open()
+            self._check_lane(lane)
+            # a pump parked on the spare-ring wait still holds collected
+            # rounds for this lane: take the pump token first
+            self._acquire_pump()
+            try:
+                self._check_lane(lane)
+                self._drain_bucket(self._lanes[lane].bucket)
+                out, dev = self._lane_stats_locked(lane)
+                self._active[lane] = False
+                self._lanes[lane] = None
+            finally:
+                self._release_pump()
+        return self._finish_stats(out, dev)
+
+    @property
+    def capacity(self) -> int:
+        return self._capacity
+
+    @property
+    def drain_mode(self) -> str:
+        return self._drain_mode
+
+    @property
+    def ring_depth(self) -> int:
+        return self._ring_depth
+
+    @property
+    def active_lanes(self) -> list[int]:
+        return [int(i) for i in np.flatnonzero(self._active)]
+
+    @property
+    def buckets(self) -> tuple:
+        return self._buckets
+
+    @property
+    def host_fetches(self) -> int:
+        """Blocking result transfers so far (one per ring drain; counted on
+        the reader thread in async mode)."""
+        return self._m_host_fetches.value()
+
+    @property
+    def rounds_executed(self) -> int:
+        return self._m_rounds_executed.value()
+
+    def compile_cache_sizes(self) -> dict:
+        """Per bucket and block shape, ``{bucket: {"block": n, "single":
+        n}}``: the number of distinct shape signatures (shape and dtype of
+        every device slab) the executor has run on.  The port compiles
+        nothing (its executor is a host loop over the kernels), so this
+        counts what a compiled executor would build: the padded K-round
+        block, and the 1-round block (present when ``ring_rounds > 1``),
+        each 0 until first run and 1 after, unless a slab's shape varies."""
+        return {b: {k: len(v) for k, v in d.items()}
+                for b, d in self._executed.items()}
+
+    def executors_compiled_once(self) -> bool:
+        """The churn witness: every executor (per bucket, per block shape)
+        has run on at most one shape signature."""
+        return all(n <= 1 for d in self.compile_cache_sizes().values()
+                   for n in d.values())
+
+    # -- feeding ------------------------------------------------------------
+
+    def feed(self, lane: int, xy: np.ndarray, ts_us: np.ndarray) -> None:
+        """Buffer a slab for one session (any length, time-sorted) and fold
+        its timestamps into the lane's host rate-estimator twin."""
+        with self._lock:
+            self._check_open()
+            self._check_lane(lane)
+            ln = self._lanes[lane]
+            xy = np.asarray(xy, np.int32).reshape(-1, 2)
+            ts = np.asarray(ts_us, np.int64).reshape(-1)
+            if not ts.size:
+                return
+            if ln.base is None:
+                ln.base = streaming_mod.session_base_us(
+                    int(ts[0]), self._cfg
+                )
+            ln.buf_xy = np.concatenate([ln.buf_xy, xy], 0)
+            ln.buf_ts = np.concatenate([ln.buf_ts, ts], 0)
+            ln.n_events += int(ts.size)
+            ln.rate_update(ts, self._half_us)
+
+    def pump_pass(self, order: tuple,
+                  max_rounds: Optional[int] = None) -> int:
+        """One serialized pump pass: fold every buffered full chunk through
+        the bucket executors, visiting buckets in ``order`` (each pumps
+        until dry or the round budget runs out).  Returns rounds executed.
+        Results stay in the device rings until ``poll``/``flush`` (or a
+        backpressure drain under ``"drain"``).  Blocks are staged and
+        dispatched through one stage-ahead deque, flushed before the pass
+        returns, so every staged round executes exactly once, in order."""
+        with self._lock:
+            self._check_open()
+            self._acquire_pump()
+            try:
+                total = 0
+                q: collections.deque = collections.deque()
+                self._pass_dispatches = 0
+                try:
+                    for bucket in order:
+                        left = (None if max_rounds is None
+                                else max_rounds - total)
+                        if left is not None and left <= 0:
+                            break
+                        total += self._pump_bucket(bucket, q,
+                                                   max_rounds=left)
+                finally:
+                    self._flush_pipeline(q)
+                return total
+            finally:
+                self._release_pump()
+
+    def flush(self, lane: int, order: tuple) -> tuple[np.ndarray, np.ndarray]:
+        """Drain the lane's full chunks, then its padded partial tail, and
+        return everything not yet polled."""
+        with self._lock:
+            self._check_open()
+            self._check_lane(lane)
+            self._acquire_pump()
+            try:
+                self._check_lane(lane)
+                q: collections.deque = collections.deque()
+                self._pass_dispatches = 0
+                try:
+                    for bucket in order:
+                        self._pump_bucket(bucket, q)   # until dry
+                    ln = self._lanes[lane]
+                    if ln.buf_ts.size:
+                        self._pump_bucket(ln.bucket, q, max_rounds=1,
+                                          flush_lane=lane)
+                finally:
+                    self._flush_pipeline(q)
+            finally:
+                self._release_pump()
+            return self.poll(lane)
+
+    def _acquire_pump(self) -> None:
+        """Take the pump token (caller holds the lock)."""
+        while self._pump_busy:
+            self._check_open()
+            self._cv.wait()
+        self._pump_busy = True
+
+    def _release_pump(self) -> None:
+        self._pump_busy = False
+        self._cv.notify_all()
+
+    def poll(self, lane: int, *,
+             wait: bool = True) -> tuple[np.ndarray, np.ndarray]:
+        """Drain the lane's accumulated (scores, kept), in stream order.
+
+        Sync mode fetches the lane's bucket ring inline, in one transfer;
+        async mode seals it to the reader and, with ``wait=True``, waits
+        until the reader has distributed it.  ``wait=False`` never waits
+        on a transfer: it returns what earlier drains already delivered.
+        Rounds lost under ``on_overflow="drop_oldest"`` are absent here
+        and counted in ``stats()['ring_dropped_rounds']``."""
+        with self._lock:
+            self._check_open()
+            self._check_lane(lane)
+            bucket = self._lanes[lane].bucket
+            self._drain_bucket(bucket, wait=wait, block=wait)
+            self._check_lane(lane)
+            ln = self._lanes[lane]
+            if not ln.results:
+                return (np.zeros((0,), np.float32), np.zeros((0,), bool))
+            scores = np.concatenate(
+                [r[0] for r in ln.results]
+            ).astype(np.float32)
+            kept = np.concatenate([r[1] for r in ln.results]).astype(bool)
+            ln.results.clear()
+            return scores, kept
+
+    # -- observability -------------------------------------------------------
+
+    def stats(self, lane: int) -> dict:
+        """Lane accounting: host float64 books (drained rounds only) plus
+        the lane's on-device accumulators (always complete), ring occupancy
+        of its bucket, and its rate view (``events_per_s_est`` from the
+        host twin, ``device_events_per_s_est`` from the in-state estimator,
+        which integrates only in online-DVFS mode)."""
+        with self._lock:
+            self._check_open()
+            self._check_lane(lane)
+            out, dev = self._lane_stats_locked(lane)
+        return self._finish_stats(out, dev)
+
+    def _lane_stats_locked(self, lane: int):
+        """Host stats dict plus copies of the lane's device scalars (caller
+        holds the lock; the copies are enqueued now and fetched after the
+        lock is released, so no transfer runs under it)."""
+        ln = self._lanes[lane]
+        n_scored = max(ln.kept_total, 1)
+        s = self._states
+        dev = tuple(t[lane].clone() for t in (
+            s.kept_total, s.energy_pj, s.latency_ns, s.rate.prev1,
+            s.rate.prev2))
+        b = ln.bucket
+        out = {
+            "lane": lane,
+            "bucket": b,
+            "n_events": ln.n_events,
+            "n_chunks": ln.n_chunks,
+            "kept_total": ln.kept_total,
+            "energy_pj": ln.energy_pj,
+            "latency_ns_per_event": ln.latency_ns / n_scored,
+            "buffered": int(ln.buf_ts.size),
+            "events_per_s_est": state_mod.rate_estimate_eps(
+                ln.r_p1, ln.r_p2, self._cfg.dvfs_cfg
+            ),
+            "migrations": 0,
+            "migration_log": [],
+            "migration_staged": False,
+            "ring_capacity": self._ring_rounds,
+            "ring_rounds_buffered": self._m_ring_count[b].value(),
+            "ring_sealed_rounds": self._m_sealed[b].value(),
+            "ring_dropped_rounds": (
+                self._m_dropped_dev[b].value()
+                + self._m_dropped_pred[b].value()
+            ),
+            "backlog_rounds": int(ln.buf_ts.size) // b,
+            "reader_lag_rounds": self._m_sealed[b].value(),
+            "last_drain_wait_s": float(self._m_last_drain_wait[b].value()),
+            "qos": ln.qos,
+            "ladder_tier": 0,
+            "ctrl_lut_every": int(s.ctrl.lut_every[lane]),
+            "ctrl_vdd_cap": int(s.ctrl.vdd_cap[lane]),
+            "ctrl_shed": bool(s.ctrl.shed[lane]),
+            "shed_events": 0,
+        }
+        return out, dev
+
+    def _finish_stats(self, out: dict, dev) -> dict:
+        dev_kept, dev_energy, dev_latency, dev_p1, dev_p2 = \
+            pipeline_mod._fetch(*dev)
+        out["device_kept_total"] = int(dev_kept)
+        out["device_energy_pj"] = float(dev_energy)
+        out["device_latency_ns"] = float(dev_latency)
+        out["device_events_per_s_est"] = state_mod.rate_estimate_eps(
+            dev_p1, dev_p2, self._cfg.dvfs_cfg
+        )
+        return out
+
+    def pool_stats(self) -> dict:
+        """Pool-level runtime counters (no device sync); the same keys as
+        the reference's.  ``h2d_event_slots`` / ``h2d_padding_bytes`` count
+        the slabs this pool uploaded, ``d2h_bytes`` the bytes its drains
+        fetched."""
+        with self._lock:
+            self._check_open()
+            exe = self.compile_cache_sizes()
+            h2d_slots = sum(h.value() for h in self._m_h2d_slots.values())
+            h2d_valid = sum(h.value() for h in self._m_h2d_valid.values())
+            stages = self._m_stages.value()
+            overlapped = self._m_stages_overlapped.value()
+            dropped_pred = sum(h.value()
+                               for h in self._m_dropped_pred.values())
+            dropped_dev = sum(h.value()
+                              for h in self._m_dropped_dev.values())
+            return {
+                "capacity": self._capacity,
+                "active": len(self.active_lanes),
+                "sharded": False,
+                "devices": 1,
+                "ring_rounds": self._ring_rounds,
+                "ring_depth": self._ring_depth,
+                "pipeline_depth": self._pipeline_depth,
+                "on_overflow": self._overflow,
+                "drain_mode": self._drain_mode,
+                "readout": self._readout,
+                "host_fetches": self._m_host_fetches.value(),
+                "rounds_executed": self._m_rounds_executed.value(),
+                "pump_drain_wait_s": float(self._m_drain_wait.value()),
+                "pump_forced_drains": self._m_forced_drains.value(),
+                "pump_stages": stages,
+                "pump_stages_overlapped": overlapped,
+                "pump_stage_overlap_ratio": (
+                    overlapped / stages if stages else 0.0
+                ),
+                "pump_stage_s": float(self._m_stage_s.value()),
+                "pump_stage_hidden_s": float(self._m_stage_hidden_s.value()),
+                "ctrl_batched_writes": self._m_ctrl_writes.value(),
+                "ctrl_actions_coalesced": self._m_ctrl_coalesced.value(),
+                "observation_rebuilds": self._m_obs_rebuilds.value(),
+                "observation_reuses": self._m_obs_reuses.value(),
+                "reader_lag_rounds": sum(
+                    h.value() for h in self._m_sealed.values()
+                ),
+                "migrations_total": self._m_migrations.value(),
+                "migrations_staged": 0,
+                "h2d_event_slots": h2d_slots,
+                "h2d_valid_events": h2d_valid,
+                "h2d_pinned_staging": self._stager.pinned,
+                "h2d_staged_uploads": self._stager.uploads,
+                "h2d_padding_bytes": (
+                    (h2d_slots - h2d_valid) * EVENT_SLOT_BYTES
+                ),
+                "d2h_bytes": self._m_d2h_bytes.value(),
+                "d2h_bytes_saved": self._m_d2h_saved.value(),
+                "d2h_compact_overflow_slots": self._m_d2h_overflow.value(),
+                "dropped_rounds_total": dropped_dev + dropped_pred,
+                "dropped_rounds_confirmed": dropped_dev,
+                "shed_events_total": 0,
+                "buckets": {
+                    b: {
+                        "lanes": sum(
+                            1 for ln in self._lanes
+                            if ln is not None and ln.bucket == b
+                        ),
+                        "events_per_s_est": sum(
+                            state_mod.rate_estimate_eps(
+                                ln.r_p1, ln.r_p2, self._cfg.dvfs_cfg
+                            )
+                            for ln in self._lanes
+                            if ln is not None and ln.bucket == b
+                        ),
+                        "ring_rounds_buffered":
+                            self._m_ring_count[b].value(),
+                        "ring_sealed_rounds": self._m_sealed[b].value(),
+                        "ring_dropped_rounds": (
+                            self._m_dropped_dev[b].value()
+                            + self._m_dropped_pred[b].value()
+                        ),
+                        "h2d_event_slots": self._m_h2d_slots[b].value(),
+                        "h2d_valid_events": self._m_h2d_valid[b].value(),
+                        "executables": exe[b],
+                    }
+                    for b in self._buckets
+                },
+            }
+
+    # -- internals ----------------------------------------------------------
+
+    def _check_lane(self, lane: int) -> None:
+        if not (0 <= lane < self._capacity) or not self._active[lane]:
+            raise KeyError(f"lane {lane} is not an active session")
+
+    def _pump_bucket(self, bucket: int, q: collections.deque,
+                     max_rounds: Optional[int] = None,
+                     flush_lane: Optional[int] = None) -> int:
+        """Run this bucket's ready rounds, ``ring_rounds`` per block,
+        cutting a block early when a lane needs a timebase rebase.  A
+        completed block is staged at once and dispatched once the deque
+        holds ``pipeline_depth`` blocks; a rebase writes the state, so it
+        applies only with nothing staged ahead (the deque is flushed
+        first)."""
+        executed = 0
+        while True:
+            pending: list[_Round] = []
+            stop = False
+            while len(pending) < self._ring_rounds:
+                if max_rounds is not None and \
+                        executed + len(pending) >= max_rounds:
+                    stop = True
+                    break
+                rnd = self._collect_round(
+                    bucket, flush_lane,
+                    allow_rebase=not pending and not q,
+                )
+                if rnd == "rebase":
+                    if not pending and q:
+                        self._flush_pipeline(q)
+                        continue
+                    break          # cut the block; rebase opens the next one
+                if rnd is None:
+                    stop = True
+                    break
+                pending.append(rnd)
+            if pending:
+                q.append(self._stage_block(bucket, pending,
+                                           stage_ahead=bool(q)))
+                while len(q) >= self._pipeline_depth:
+                    self._dispatch_block(q.popleft())
+                executed += len(pending)
+            if stop or not pending:
+                break
+        return executed
+
+    def _flush_pipeline(self, q: collections.deque) -> None:
+        """Dispatch every staged-ahead block, in stage order."""
+        while q:
+            self._dispatch_block(q.popleft())
+
+    def _collect_round(self, bucket: int, flush_lane: Optional[int],
+                       allow_rebase: bool):
+        """Pop one round's worth of chunks from this bucket's lane buffers.
+
+        Returns a ``_Round``, ``None`` (nothing ready), or ``"rebase"`` (a
+        lane needs a timebase hop first but the current block already holds
+        rounds, which must run before the hop)."""
+        ready: list[tuple[int, int]] = []
+        for lane in self.active_lanes:
+            ln = self._lanes[lane]
+            if ln.bucket != bucket:
+                continue
+            if ln.buf_ts.size >= bucket:
+                ready.append((lane, bucket))
+            elif lane == flush_lane and ln.buf_ts.size:
+                ready.append((lane, int(ln.buf_ts.size)))
+        if not ready:
+            return None
+
+        hops_needed = []
+        for lane, n in ready:
+            ln = self._lanes[lane]
+            new_base, hops = streaming_mod.plan_rebase(
+                ln.base, ln.buf_ts[:n], self._cfg
+            )
+            if hops:
+                hops_needed.append((lane, new_base, hops))
+        if hops_needed and not allow_rebase:
+            return "rebase"
+        for lane, new_base, hops in hops_needed:
+            self._lanes[lane].base = new_base
+            one = state_mod.lane_state(self._states, lane)
+            for hop in hops:
+                one = streaming_mod.shift_state_base(one, hop, self._half_us)
+            self._states = state_mod.set_lane_state(self._states, lane, one)
+
+        xy = np.zeros((self._phys, bucket, 2), np.int32)
+        ts = np.zeros((self._phys, bucket), np.int32)
+        valid = np.zeros((self._phys, bucket), bool)
+        mask = np.zeros((self._phys,), bool)
+        n_valid = np.zeros((self._phys,), np.int32)
+        for lane, n in ready:
+            ln = self._lanes[lane]
+            xy[lane, :n] = ln.buf_xy[:n]
+            ts64 = np.full((bucket,), ln.buf_ts[min(n, ln.buf_ts.size) - 1],
+                           np.int64)
+            ts64[:n] = ln.buf_ts[:n]
+            ts[lane] = (ts64 - ln.base).astype(np.int32)
+            valid[lane, :n] = True
+            mask[lane] = True
+            n_valid[lane] = n
+            ln.buf_xy = ln.buf_xy[n:]
+            ln.buf_ts = ln.buf_ts[n:]
+            ln.events_folded += n
+        return _Round(xy, ts, valid, mask, n_valid)
+
+    def _stage_block(self, bucket: int, rounds: list, *,
+                     stage_ahead: bool = False) -> _StagedBlock:
+        """The stage half: gather a block's rounds into host slabs and
+        start their upload through the pinned stager.  One round uploads
+        ``(lanes, chunk)`` slabs (mask and counts ride in the same slab);
+        more upload the padded ``(ring_rounds, lanes, chunk)`` block, with
+        mask and counts as small uploads of their own.  The uploads are
+        accounted here; rings and state are not touched."""
+        k = self._ring_rounds
+        n = len(rounds)
+        t0 = obs_mod.timer()
+        masks = [r.mask for r in rounds]
+        if n == 1 and k > 1:
+            rnd = rounds[0]
+            xy, ts, valid, mask, n_valid = self._stager.put(
+                rnd.xy, rnd.ts, rnd.valid, rnd.mask, rnd.n_valid)
+            blk = _StagedBlock(bucket, 1, True, xy, ts, valid, mask,
+                               n_valid, masks)
+            self._m_h2d_slots[bucket].inc(self._phys * bucket)
+        else:
+            xy = np.zeros((k, self._phys, bucket, 2), np.int32)
+            ts = np.zeros((k, self._phys, bucket), np.int32)
+            valid = np.zeros((k, self._phys, bucket), bool)
+            mask = np.zeros((k, self._phys), bool)
+            n_valid = np.zeros((k, self._phys), np.int32)
+            for i, rnd in enumerate(rounds):
+                xy[i], ts[i], valid[i] = rnd.xy, rnd.ts, rnd.valid
+                mask[i], n_valid[i] = rnd.mask, rnd.n_valid
+            xy_d, ts_d, valid_d = self._stager.put(xy, ts, valid)
+            blk = _StagedBlock(
+                bucket, n, False, xy_d, ts_d, valid_d,
+                state_mod.upload(mask, self._device),
+                state_mod.upload(n_valid, self._device), masks)
+            self._m_h2d_slots[bucket].inc(k * self._phys * bucket)
+        self._m_h2d_valid[bucket].inc(
+            int(sum(int(r.n_valid.sum()) for r in rounds)))
+        dt = obs_mod.timer() - t0
+        self._m_stages.inc()
+        self._m_stage_s.inc(dt)
+        if stage_ahead and self._pass_dispatches > 0:
+            # this stage began with an earlier block staged-but-undispatched
+            # and a block of this pass already dispatched: the gather and
+            # upload ran ahead of the dispatch point
+            self._m_stages_overlapped.inc()
+            if self._busy_probe is not None and \
+                    not self._busy_probe.query():
+                self._m_stage_hidden_s.inc(dt)
+        return blk
+
+    def _dispatch_block(self, blk: _StagedBlock) -> None:
+        """The dispatch half: make ring room (``"drain"`` policy) and run
+        the block's rounds: for each, the lane-batched step (K1, K2 where
+        due), the masked select, and the ring push (K3 when compact)."""
+        bucket, k, n = blk.bucket, self._ring_rounds, blk.n
+        if self._overflow == "drain" and \
+                self._m_ring_count[bucket].value() + n > k:
+            t0 = obs_mod.timer()
+            self._drain_bucket(bucket, wait=False)
+            w = obs_mod.timer() - t0
+            self._m_drain_wait.inc(w)
+            self._m_last_drain_wait[bucket].set(w)
+            self._m_forced_drains.inc()
+
+        tcfg = self._tcfg[bucket]
+        for i in range(n):
+            xy, ts, valid, mask, n_valid = blk.round(i)
+            chunk = state_mod.ChunkInput(xy, ts, valid, *self._riders)
+            self._states, outs = state_mod.detector_step(
+                tcfg, self._states, chunk, mask=blk.masks[i])
+            self._push(bucket, outs, mask, n_valid)
+        self._executed[bucket]["single" if blk.single else "block"].add(
+            tuple((tuple(t.shape), t.dtype) for t in
+                  (blk.xy, blk.ts, blk.valid, blk.mask, blk.n_valid)))
+        c = self._m_ring_count[bucket].value()
+        self._m_ring_count[bucket].set(min(c + n, k))
+        self._m_dropped_pred[bucket].add(max(0, c + n - k))
+        self._m_rounds_executed.inc(n)
+        self._pass_dispatches += 1
+        if self._device.type == "cuda":
+            self._busy_probe = torch.cuda.Event()
+            self._busy_probe.record()
+
+    # -- draining: sync (inline fetch) and async (seal to the reader) -------
+
+    def _drain_bucket(self, bucket: int, *, wait: bool = True,
+                      block: bool = True) -> None:
+        """Get this bucket's buffered rounds on their way to the host: sync
+        mode fetches inline; async mode seals the live ring to the reader
+        and, with ``wait=True``, waits until everything sealed for this
+        bucket is distributed.  ``block=False`` skips the inline fetch
+        (sync) or a seal that would wait for a spare ring (async)."""
+        if self._drain_mode == "sync":
+            if block:
+                self._drain_ring(bucket)
+        else:
+            self._seal_ring(bucket, block=block)
+            if wait:
+                self._wait_bucket_drained(bucket)
+
+    def _drain_ring(self, bucket: int) -> None:
+        """Sync mode: one transfer of the live ring on the calling thread,
+        then distribute and mark the ring empty."""
+        if self._m_ring_count[bucket].value() == 0:
+            return
+        ring = self._fetch_ring(self._rings[bucket])
+        self._m_host_fetches.inc()
+        self._distribute(bucket, ring)
+        self._m_ring_count[bucket].set(0)
+        self._reset_ring(self._rings[bucket])
+
+    def _seal_ring(self, bucket: int, *, block: bool = True) -> None:
+        """Async mode's swap point (caller holds the lock): install a spare
+        as the live ring and hand the sealed one, with an event recorded
+        after its last push, to the reader.  With every spare still in the
+        reader's hands this waits (releasing the lock), or with
+        ``block=False`` returns."""
+        if self._m_ring_count[bucket].value() == 0:
+            return
+        while not self._spares[bucket]:
+            if not block:
+                return
+            self._check_open()
+            self._cv.wait()
+            if self._m_ring_count[bucket].value() == 0:
+                return
+        sealed = self._rings[bucket]
+        done = None
+        if self._device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record()
+        self._rings[bucket] = self._spares[bucket].popleft()
+        self._m_sealed[bucket].add(self._m_ring_count[bucket].value())
+        self._inflight[bucket] += 1
+        self._m_ring_count[bucket].set(0)
+        self._sealed_q.put((bucket, sealed, done))
+
+    def _wait_bucket_drained(self, bucket: int) -> None:
+        """Block (releasing the lock) until the reader has fetched and
+        distributed every ring sealed for this bucket."""
+        while self._inflight[bucket] > 0:
+            self._check_open()
+            self._cv.wait()
+
+    def _fetch_ring(self, ring: state_mod.RingState) -> state_mod.RingState:
+        """The transfer both drain modes funnel through, on the current
+        stream (the reader's own in async mode, where it runs with no lock
+        held).  Returns a dense host ``RingState``: compact rings are
+        densified here."""
+        if self._readout == "compact":
+            return self._fetch_compact(ring)
+        host = state_mod.RingState(*pipeline_mod._fetch(*ring))
+        self._m_d2h_bytes.inc(obs_mod.leaves_nbytes(*ring))
+        return host
+
+    def _fetch_compact(self, ring: state_mod.CompactRingState):
+        """Compact readout: fetch the records plus the cursors in one
+        transfer (``vdd_idx`` only when DVFS is online — fixed-Vdd books
+        never read it), gather the dense rows of the slot-lanes whose kept
+        count overflowed the records into one second transfer, and scatter
+        back to a dense host ``RingState``.
+
+        The densify is exact: the step scores every event that was not
+        kept exactly ``-inf`` with ``keep=False``, the fill value, so
+        scattering the ``n_kept`` records reproduces the dense row."""
+        rounds, lanes, chunk = ring.scores.shape
+        cap = ring.c_idx.shape[2]
+        leaves = [ring.c_idx, ring.c_val, ring.n_kept, ring.n_valid,
+                  ring.mask, ring.head, ring.count, ring.dropped]
+        if self._online:
+            leaves.append(ring.vdd_idx)
+        (c_idx, c_val, n_kept, n_valid, mask,
+         head, count, dropped, *rest) = pipeline_mod._fetch(*leaves)
+        vdd_idx = rest[0] if rest else np.zeros((rounds, lanes), np.int32)
+        fetched = obs_mod.leaves_nbytes(*leaves)
+
+        # Only undrained slots: recycled rings reset just their cursors, so
+        # stale slots can still look masked.
+        live = state_mod.ring_slot_order(int(head), int(count), rounds)
+        rows = [
+            (slot, int(lane))
+            for slot in live
+            for lane in np.flatnonzero(mask[slot] & (n_kept[slot] > cap))
+        ]
+        if rows:
+            dev = ring.scores.device
+            si = state_mod.upload(np.array([r[0] for r in rows]), dev)
+            li = state_mod.upload(np.array([r[1] for r in rows]), dev)
+            over = (ring.scores[si, li], ring.keep[si, li])
+            over_s, over_k = pipeline_mod._fetch(*over)
+            fetched += obs_mod.leaves_nbytes(*over)
+            self._m_d2h_overflow.inc(len(rows))
+
+        scores = np.full((rounds, lanes, chunk), -np.inf, np.float32)
+        keep = np.zeros((rounds, lanes, chunk), bool)
+        for slot in live:
+            for lane in np.flatnonzero(mask[slot]):
+                nk = int(n_kept[slot, lane])
+                if nk > cap:
+                    continue  # filled from the overflow rows below
+                idx = c_idx[slot, lane, :nk]
+                scores[slot, lane, idx] = c_val[slot, lane, :nk]
+                keep[slot, lane, idx] = True
+        for j, (slot, lane) in enumerate(rows):
+            scores[slot, lane] = over_s[j]
+            keep[slot, lane] = over_k[j]
+
+        self._m_d2h_bytes.inc(fetched)
+        dense_eq = obs_mod.leaves_nbytes(
+            ring.scores, ring.keep, ring.n_kept, ring.vdd_idx,
+            ring.n_valid, ring.mask, ring.head, ring.count, ring.dropped,
+        )
+        self._m_d2h_saved.inc(max(0, dense_eq - fetched))
+        return state_mod.RingState(
+            scores=scores, keep=keep, n_kept=n_kept, vdd_idx=vdd_idx,
+            n_valid=n_valid, mask=mask, head=head, count=count,
+            dropped=dropped,
+        )
+
+    def _reader_loop(self) -> None:
+        """Async drain: fetch sealed rings FIFO on the reader's own CUDA
+        stream after the pump's event, then distribute under the lock and
+        return the ring to the spares (its copy is finished: the fetch
+        synchronised the stream).  Any exception is stored and re-raised
+        to the next public API caller."""
+        stream = (torch.cuda.Stream(self._device)
+                  if self._device.type == "cuda" else None)
+        while True:
+            item = self._sealed_q.get()
+            if item is _STOP:
+                return
+            bucket, sealed, done = item
+            try:
+                if stream is None:
+                    host = self._fetch_ring(sealed)
+                else:
+                    with torch.cuda.stream(stream):
+                        stream.wait_event(done)
+                        host = self._fetch_ring(sealed)
+                        self._reset_ring(sealed)
+                        stream.synchronize()
+            except BaseException as e:
+                with self._cv:
+                    self._reader_exc = e
+                    self._cv.notify_all()
+                return
+            with self._cv:
+                try:
+                    self._m_host_fetches.inc()
+                    self._distribute(bucket, host)
+                    if stream is None:
+                        self._reset_ring(sealed)
+                    self._spares[bucket].append(sealed)
+                    self._m_sealed[bucket].set(max(
+                        0, self._m_sealed[bucket].value() - int(host.count)
+                    ))
+                    self._inflight[bucket] -= 1
+                except BaseException as e:
+                    self._reader_exc = e
+                    self._cv.notify_all()
+                    return
+                self._cv.notify_all()
+
+    def _distribute(self, bucket: int, ring) -> None:
+        """Walk a fetched ring's undrained slots (oldest first), hand each
+        lane its results, fold the float64 books, and move the drops this
+        fetch confirmed from the predicted to the confirmed tally (caller
+        holds the lock; ``ring`` is host data)."""
+        n_slots = ring.scores.shape[0]
+        for slot in state_mod.ring_slot_order(ring.head, ring.count, n_slots):
+            for lane in np.flatnonzero(ring.mask[slot]):
+                ln = self._lanes[int(lane)]
+                if ln is None:
+                    continue
+                n = int(ring.n_valid[slot, lane])
+                streaming_mod.account_chunk(
+                    ln, ring.n_kept[slot, lane], ring.vdd_idx[slot, lane],
+                    online=self._online, tab=self._tab,
+                    fixed_vdd=self._cfg.vdd,
+                )
+                # copy: a view would pin the whole fetched buffer
+                ln.results.append((
+                    ring.scores[slot, lane, :n].astype(np.float32,
+                                                       copy=True),
+                    ring.keep[slot, lane, :n].astype(bool, copy=True),
+                ))
+        d = int(ring.dropped)
+        self._m_dropped_dev[bucket].inc(d)
+        self._m_dropped_pred[bucket].add(-d)

@@ -13,7 +13,11 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import ber as t_ber  # noqa: E402
 from repro_torch.core import prng  # noqa: E402
 from repro_torch.core.stcf import NEVER  # noqa: E402
-from repro_torch.kernels import fused_step, harris_conv, ops  # noqa: E402
+from repro_torch.core import pipeline  # noqa: E402
+from repro_torch.events import synthetic  # noqa: E402
+from repro_torch.kernels import compact, fused_step, harris_conv, ops  # noqa: E402,E501
+from repro_torch.obs.schema import WALL_TIME_KEYS  # noqa: E402
+from repro_torch.serve import DetectorPool  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 REL = 1e-5
@@ -73,3 +77,64 @@ def test_harris_kernel_matches_plain(cuda, hw):
     got = harris_conv.harris_cuda(tos.to(cuda))
     err = (got - plain).abs().max().item()
     assert err <= REL * plain.abs().max().item()
+
+
+@pytest.mark.parametrize("e,cap", [(128, 1), (512, 64), (512, 512),
+                                   (4096, 512), (8192, 8192)])
+@pytest.mark.parametrize("density", [0.0, 0.05, 1.0])
+def test_compact_kernel_matches_plain(cuda, e, cap, density):
+    rng = np.random.default_rng(e + cap)
+    scores = torch.from_numpy(
+        rng.standard_normal((3, 5, e)).astype(np.float32)).to(cuda)
+    keep = torch.from_numpy(rng.random((3, 5, e)) < density).to(cuda)
+    flat = (scores.reshape(15, e), keep.reshape(15, e))
+    plain = compact.compact_ref(*flat, cap=cap)
+    before = ops.LAUNCHES["compact"]
+    got = ops.compact_slots_op(scores, keep, cap=cap)
+    assert ops.LAUNCHES["compact"] == before + 1
+    for name, p, g in zip(("idx", "val", "count"), plain, got):
+        assert torch.equal(p, g.reshape(p.shape)), name
+
+
+def _serve_two_lanes(device):
+    cfg = pipeline.PipelineConfig(
+        height=180, width=240, chunk=512, lut_every_chunks=2, dvfs=True,
+        dvfs_online=True, inject_ber=True, device=device)
+    streams = [synthetic.shapes_stream(duration_us=60_000, seed=s)
+               for s in (0, 1)]
+    pool = DetectorPool(cfg, 2, ring_rounds=4, readout="compact")
+    lanes = [pool.connect(seed=s) for s in (0, 1)]
+    outs = {0: [], 1: []}
+    for start in range(0, 6000, 1500):
+        for i, lane in enumerate(lanes):
+            pool.feed(lane, streams[i].xy[start:start + 1500],
+                      streams[i].ts[start:start + 1500])
+        pool.pump()
+        for i, lane in enumerate(lanes):
+            outs[i].append(pool.poll(lane))
+    for i, lane in enumerate(lanes):
+        outs[i].append(pool.flush(lane))
+    stats = pool.pool_stats()
+    pool.close()
+    return ({i: [np.concatenate(x) for x in zip(*o)] for i, o in
+             outs.items()}, stats)
+
+
+def test_pool_on_cuda_equals_cpu(cuda):
+    """A 2-lane pool (online DVFS with BER, compact readout, async drain)
+    on the card equals the same pool on the CPU: kept masks exact, scores
+    within ``1e-5 * max|R|``, stats equal apart from wall-clock keys."""
+    ops.reset_launch_counts()
+    got, gstats = _serve_two_lanes("cuda")
+    assert min(ops.LAUNCHES.values()) > 0, ops.LAUNCHES
+    want, wstats = _serve_two_lanes("cpu")
+    for i in (0, 1):
+        np.testing.assert_array_equal(got[i][1], want[i][1])
+        fin = np.isfinite(want[i][0])
+        np.testing.assert_array_equal(np.isfinite(got[i][0]), fin)
+        err = np.abs(got[i][0][fin] - want[i][0][fin]).max()
+        assert err <= REL * np.abs(want[i][0][fin]).max()
+    assert gstats["h2d_pinned_staging"] and not wstats["h2d_pinned_staging"]
+    for key in wstats:
+        if key not in WALL_TIME_KEYS and key != "h2d_pinned_staging":
+            assert gstats[key] == wstats[key], key

@@ -34,10 +34,13 @@ def test_port_has_the_slice_modules():
                  "core.pr_eval", "core.prng", "core.dvfs", "core.stcf",
                  "core.tos", "core.ber", "core.harris", "core.state",
                  "core.pipeline", "kernels._build", "kernels.fused_step",
-                 "kernels.harris_conv", "kernels.ops"):
+                 "kernels.harris_conv", "kernels.ops", "kernels.compact",
+                 "obs.metrics", "obs.sinks", "obs.schema", "obs.d2h",
+                 "launch.sharding", "serve.streaming", "serve.scheduler",
+                 "serve.runtime", "serve.pool"):
         assert "repro_torch." + name in MODULES
-    assert (PORT / "csrc" / "fused_step.cu").is_file()
-    assert (PORT / "csrc" / "harris.cu").is_file()
+    for src in ("fused_step", "harris", "compact"):
+        assert (PORT / "csrc" / f"{src}.cu").is_file()
 
 
 def test_import_loads_no_jax():
