@@ -8,20 +8,29 @@ Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of this repository.  Phases, each printing its own lines:
 
   1. environment: the card's name and power limit, and the ``nvcc`` build
-     of the three kernels (``csrc/*.cu``, built in parallel for
+     of the four kernel sources (``csrc/*.cu``, built in parallel for
      ``sm_90a``);
   2. K1 (fused chunk step) against its plain PyTorch version on the card,
      at 180x240 and 1280x720, 512 events, 1 and 4 lanes, BER off and on:
      every output must be equal;
   3. K2 (Harris response) against its plain version at both sizes, within
      ``1e-5 * max|R|``; K3 (stream compaction) against its plain version
-     over rows x events x cap x density: every output equal;
+     over rows x events x cap x density: every output equal; K4-K7 (the
+     TOS update on its own: NMC replay, closed form, and both binned per
+     128x128 tile) against their plain versions at both sizes, 512 events,
+     1 and 4 lanes, the binned ones with ``cap = E`` and with a ``cap``
+     that truncates: every output equal;
   4. end to end on the DAVIS240 sensor (180x240): ``run_pipeline`` with
      BER at a fixed 0.6 V and with online DVFS, on the card and on the CPU
      (plain versions), held to the parity bounds; PR-AUC printed;
   5. end to end at 1280x720 (an HD event sensor): events/s and ms per
      chunk; the launch counts of phases 4-5 must be nonzero for both
-     kernels;
+     kernels; then the TOS-update backends ``"nmc"`` (K4) and ``"batched"``
+     (K5): DAVIS240 runs equal to the card's ``"fused"`` runs on every
+     output and to the CPU within the bounds, an HD run of each (events/s,
+     ms per chunk), and the HD stream folded through
+     ``ops.tos_update_op(mode="nmc_binned" / "batched_binned")`` (K6, K7)
+     equal to the lossless modes; K4-K7 must each be launched;
   6. the serving path: ``DetectorPool`` with 16 DAVIS240 lanes (online
      DVFS with BER; async dense, async compact, sync dense, all equal) and
      4 lanes at 1280x720 (fixed 1.2 V, compact), held against the same
@@ -34,8 +43,10 @@ checkout of this repository.  Phases, each printing its own lines:
      bytes and operations: CUDA events over back-to-back calls (the JSON's
      ``ms`` and ``plain_ms``, as in the first slice) and the device time
      per call from the profiler (``device_ms``, ``plain_device_ms``, which
-     leave out the device's wait for the host to enqueue); a profile of
-     the HD step, and the JSON summary line.
+     leave out the device's wait for the host to enqueue); for K5 and K7
+     also one ``torch.bmm`` of the fp16 one-hot bands, the counts part
+     only, as the library yardstick; a profile of the HD step, and the
+     JSON summary line.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -207,6 +218,200 @@ def k3_bound(keep, cap):
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
+def sync(dev) -> None:
+    """Wait for ``dev`` (a no-op on the CPU)."""
+    import torch
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def tos_bound(b, h, w, e, patch, keep, *, centre):
+    """Least time for one K4-K7 call: the surface read and the new one
+    written once, the events (xy int32, valid bool) read once, and for
+    K5/K7 the int32 centre surface read once; integer operations, a
+    compare and an update per kept event's patch pixel, are far below."""
+    nbytes = b * h * w * (2 + (4 if centre else 0)) + b * e * (8 + 1)
+    ops = 2 * int(keep.sum()) * patch * patch
+    t_b, t_o = nbytes / MEM_BPS, ops / INT32_OPS
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def tos_kernel_phase(rng, dev, sizes=((180, 240), (720, 1280)),
+                     lanes=(1, 4)):
+    """Phase 3c: K4-K7 against their plain versions; returns max |delta|.
+    Smaller arguments (and the plain versions standing in for the kernels)
+    rehearse it on the CPU."""
+    import torch
+    from repro_torch.kernels import ops, tos_update
+    kw = dict(patch=7, th=225)
+    err, n = 0, 0
+    for h, w in sizes:
+        for b in lanes:
+            t = k1_inputs(rng, b, h, w, 512, dev, inject=False)[0]
+            tos, xy, valid = t[0], t[3], t[5]
+            centre = ops.centre_surface((h, w), xy, valid, **kw)
+            bins, _ = tos_update.bin_events_to_tiles(
+                xy, valid, grid_hw=tos_update._grid(h, w), patch=7, cap=512)
+            hits = bins[..., 2].sum(-1)
+            trunc = int(hits.max()) // 2
+            cases = [(m, 0) for m in ops.TOS_MODES] + [
+                ("nmc_binned", trunc), ("batched_binned", trunc)]
+            for mode, cap in cases:
+                name = ops.TOS_MODES[mode]
+                extra = (centre,) if mode.startswith("batched") else ()
+                ckw = dict(kw, cap=cap) if mode.endswith("binned") else kw
+                plain = getattr(tos_update, f"{name}_ref")(
+                    tos, xy, valid, *extra, **ckw)
+                got = getattr(tos_update, f"{name}_cuda")(
+                    tos, xy, valid, *extra, **ckw)
+                sync(dev)
+                if not torch.equal(plain, got):
+                    raise AssertionError(f"{name} differs at {h}x{w} B={b} "
+                                         f"cap={cap}")
+                err = max(err, int((plain.int() - got.int()).abs().max()))
+                n += 1
+            print(f"[K4-K7] {h}x{w} B={b}: nmc, batched, nmc_binned, "
+                  f"batched_binned equal to plain (cap E, and cap {trunc} "
+                  f"dropping hits in {int((hits > trunc).sum())} of "
+                  f"{hits.numel()} lane-tiles)")
+    print(f"[K4-K7] {n} cases equal")
+    return float(err)
+
+
+def tos_backend_phase(smi, davis, hd, davis_cfgs, gpu_runs, cpu_runs,
+                      hd_cfg, *, device="cuda", fold_chunks=128):
+    """Phase 5b: the TOS-update backends on ``device``.  Returns the launch
+    counts of these runs.  Shorter streams rehearse it on the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.core import pipeline
+    from repro_torch.kernels import ops
+
+    dev = torch.device(device)
+    hd_cfg = dataclasses.replace(hd_cfg, device=device)
+    pipeline.run_pipeline(hd.xy[:4096], hd.ts[:4096],      # warm-up
+                          dataclasses.replace(hd_cfg, backend="nmc"))
+    ops.reset_launch_counts()
+    for backend in ("nmc", "batched"):
+        for name, extra in davis_cfgs.items():
+            cfg = pipeline.PipelineConfig(chunk=512, lut_every_chunks=2,
+                                          patch=7, th=225, backend=backend,
+                                          device=device, **extra)
+            got = pipeline.run_pipeline(davis.xy, davis.ts, cfg)
+            fused, want = gpu_runs[name], cpu_runs[name]
+            for field in ("scores", "kept", "tos", "lut", "vdd_trace"):
+                if not np.array_equal(getattr(got, field),
+                                      getattr(fused, field)):
+                    raise AssertionError(f"DAVIS240 {name} {backend}: "
+                                         f"{field} differs from fused")
+            if got.energy_pj != fused.energy_pj:
+                raise AssertionError(f"DAVIS240 {name} {backend}: energy")
+            for field in ("kept", "tos", "vdd_trace"):
+                if not np.array_equal(getattr(got, field),
+                                      getattr(want, field)):
+                    raise AssertionError(f"DAVIS240 {name} {backend}: "
+                                         f"{field} differs from the CPU")
+            err_s = close(got.scores, want.scores)
+            err_l = close(got.lut, want.lut)
+            print(f"[tos] DAVIS240 {name} {backend}: equal to the card's "
+                  f"fused run on scores/kept/tos/lut/vdd/energy; against "
+                  f"the CPU torch run kept/tos/vdd equal, scores max|delta| "
+                  f"{err_s:.3g}, lut max|delta| {err_l:.3g}")
+        cfg = dataclasses.replace(hd_cfg, backend=backend)
+        sync(dev)
+        t0 = time.perf_counter()
+        res = pipeline.run_pipeline(hd.xy, hd.ts, cfg)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        n_chunks = -(-len(hd) // cfg.chunk)
+        if not (np.isfinite(res.lut).all() and res.kept.any()):
+            raise AssertionError(f"HD {backend} run malformed")
+        print(f"[tos] {smi}: HD 1280x720 {backend}: {len(hd)} events in "
+              f"{n_chunks} chunks of 512, {wall:.3f} s wall = "
+              f"{len(hd) / wall:.0f} events/s, {wall / n_chunks * 1e3:.3f} "
+              f"ms/chunk (host clock, incl. upload and one fetch)")
+        if device != "cpu":
+            profile_hd(smi, f"HD {backend}", hd, cfg, {
+                "K4/K5 tos_update.cu": ("tos_tile_kernel",),
+                "K2 harris.cu": ("harris_kernel",)})
+
+    # The binned modes through the op a caller uses: the HD stream's first
+    # chunks folded into one surface per mode.
+    n = fold_chunks * 512
+    xy = torch.from_numpy(hd.xy[:n].astype(np.int32)).to(dev).reshape(
+        -1, 512, 2)
+    valid = torch.ones(xy.shape[:2], dtype=torch.bool, device=dev)
+    surfaces = {}
+    for mode in ops.TOS_MODES:
+        surf = torch.zeros((720, 1280), dtype=torch.uint8, device=dev)
+        for c in range(xy.shape[0]):
+            surf = ops.tos_update_op(surf, xy[c], valid[c], patch=7, th=225,
+                                     mode=mode)
+        surfaces[mode] = surf
+    for mode in ("nmc_binned", "batched_binned"):
+        if not torch.equal(surfaces[mode], surfaces["nmc"]):
+            raise AssertionError(f"HD fold {mode} differs from nmc")
+    if not torch.equal(surfaces["batched"], surfaces["nmc"]):
+        raise AssertionError("HD fold batched differs from nmc")
+    print(f"[tos] HD fold of {xy.shape[0]} chunks through tos_update_op: "
+          f"nmc = batched = nmc_binned = batched_binned (cap E), "
+          f"{int((surfaces['nmc'] > 0).sum())} live pixels")
+    launches = dict(ops.LAUNCHES)
+    print(f"[tos] launches on the TOS-update paths: {launches}")
+    if device != "cpu" and min(
+            launches[k] for k in (*ops.TOS_MODES, "harris")) <= 0:
+        raise AssertionError(f"a kernel was not launched: {launches}")
+    return launches
+
+
+def profile_hd(smi, what, hd, cfg, groups, chunks=64):
+    """Profile a short steady window (``chunks`` chunks) of the HD step:
+    the unprofiled wall, the device busy time and idle share, the device
+    time by kernel group, and the leading device rows."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import pipeline
+    groups = {**groups, "copies": ("Memcpy", "Memset")}
+    other = "plain torch (threefry, DVFS, ...)"
+    win = slice(0, chunks * cfg.chunk)
+    pipeline.run_pipeline(hd.xy[win], hd.ts[win], cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipeline.run_pipeline(hd.xy[win], hd.ts[win], cfg)
+    torch.cuda.synchronize()
+    plain_wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pipeline.run_pipeline(hd.xy[win], hd.ts[win], cfg)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # Device-side rows only (kernels, copies): an aten op's row repeats the
+    # device time of the kernels it launched.
+    rows = [r for r in prof.key_averages()
+            if str(r.device_type).endswith("CUDA")
+            and r.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r.self_device_time_total)
+    per = {g: 0.0 for g in (*groups, other)}
+    for r in rows:
+        g = next((g for g, keys in groups.items()
+                  if any(k in r.key for k in keys)), other)
+        per[g] += r.self_device_time_total / 1e3
+    dev_ms = sum(per.values())
+    print(f"[profile] {smi}: {what}, {chunks} chunks: unprofiled wall "
+          f"{plain_wall_ms:.2f} ms, profiled wall {wall_ms:.2f} ms, device "
+          f"busy {dev_ms:.2f} ms, idle share "
+          f"{1 - dev_ms / plain_wall_ms:.3f} (of the unprofiled wall)")
+    for g, ms in per.items():
+        print(f"[profile]   {g}: {ms:.3f} ms "
+              f"({ms / chunks * 1e3:.1f} us/chunk)")
+    ours = [k for keys in groups.values() for k in keys]
+    for i, r in enumerate(rows):
+        if i < 10 or any(k in r.key for k in ours):
+            print(f"[profile]   {r.self_device_time_total / 1e3:9.3f} ms "
+                  f"x{r.count:<5d} {r.key[:90]}")
+
+
 def serve_pool(cfg, streams, seeds, *, slab, max_events=None, **pool_kw):
     """Serve each stream on its own lane of one ``DetectorPool``: feed
     every lane a slab, pump, poll, until the streams are spent, then flush.
@@ -286,7 +491,8 @@ def serving_phase(smi, *, device, lanes=16, hd_lanes=4, dav_us=200_000,
                           **pool_kw) for _ in range(reps)]
     serve_launches = dict(ops.LAUNCHES)
     print(f"[serve] launches on the serving path: {serve_launches}")
-    if device != "cpu" and min(serve_launches.values()) <= 0:
+    if device != "cpu" and min(serve_launches[k] for k in (
+            "fused_step", "harris", "compact")) <= 0:
         raise AssertionError(f"a kernel was not launched: {serve_launches}")
 
     for name, got in {**runs, "hd_compact": hd_runs}.items():
@@ -514,6 +720,9 @@ def main() -> int:
     print(f"[K3] {n_cases} cases (rows 1/16/128 x E 128/512/4096 x cap "
           f"1/E/8/E x density 0/0.05/1): idx, val, count equal")
 
+    # --- 3c. K4-K7 against their plain versions -------------------------
+    k47_err = tos_kernel_phase(np.random.default_rng(13), dev)
+
     # --- 4/5. the main path: run_pipeline on the card ------------------
     davis = synthetic.shapes_stream(duration_us=200_000, seed=0)
     hd = synthetic.shapes_stream(height=720, width=1280,
@@ -554,10 +763,13 @@ def main() -> int:
     if min(batch_launches["fused_step"], batch_launches["harris"]) <= 0:
         raise AssertionError(f"a kernel was not launched: {batch_launches}")
 
+    cpu_runs = {}
     for name, extra in davis_cfgs.items():
         cfg = pipeline.PipelineConfig(chunk=512, lut_every_chunks=2,
-                                      patch=7, th=225, device="cpu", **extra)
-        want = pipeline.run_pipeline(davis.xy, davis.ts, cfg)
+                                      patch=7, th=225, backend="torch",
+                                      device="cpu", **extra)
+        want = cpu_runs[name] = pipeline.run_pipeline(davis.xy, davis.ts,
+                                                      cfg)
         got = gpu_runs[name]
         for field in ("kept", "tos", "vdd_trace"):
             if not np.array_equal(getattr(got, field), getattr(want, field)):
@@ -599,6 +811,10 @@ def main() -> int:
           f"{hd_s / n_chunks * 1e3:.3f} ms/chunk (host clock, incl. "
           f"upload and one fetch), kept {hd_res.kept.mean():.3f}, "
           f"vdd picks {sorted(set(hd_res.vdd_trace.tolist()))}")
+
+    # --- 5b. the TOS-update backends (K4, K5) and modes (K6, K7) -------
+    tos_launches = tos_backend_phase(smi, davis, hd, davis_cfgs, gpu_runs,
+                                     cpu_runs, hd_cfg)
 
     # --- 6. the serving path: DetectorPool on the card -----------------
     serve_launches, kept_frac = serving_phase(smi, device="cuda")
@@ -657,49 +873,59 @@ def main() -> int:
               f"{t['plain_device_ms']:.4f} ms device; bound "
               f"{t['bound_ms']:.7f} ms by {t['bound_by']}")
 
+    # K4-K7 at the main path's shapes: HD, B=1, E=512, K1's kept events.
+    from repro_torch.kernels import tos_update
+    tkw = dict(patch=7, th=225)
+    tos_in, xy_in = ins[0], ins[3]
+    centre = ops.centre_surface((h, w), xy_in, keep, **tkw)
+    r = (tkw["patch"] - 1) // 2
+    rows = torch.arange(h, device=dev)
+    cols = torch.arange(w, device=dev)
+    y_ev, x_ev = xy_in[..., 1], xy_in[..., 0]
+    row_band = (((rows[None, :, None] - y_ev[:, None, :]).abs() <= r)
+                & keep[:, None, :]).half()                  # (B, H, E)
+    col_band = (((cols[None, None, :] - x_ev[:, :, None]).abs() <= r)
+                & keep[:, :, None]).half()                  # (B, E, W)
+    k_total = torch.bmm(row_band, col_band)
+    bg = tos_update.batched_fused_cuda(
+        tos_in, xy_in, keep, torch.full_like(centre, -1), **tkw)
+    want_bg = tos_in.int() - k_total.int()
+    if not torch.equal(bg.int(), torch.where(want_bg >= 225, want_bg, 0)):
+        raise AssertionError("the bmm yardstick's counts differ from K5's")
+    bmm_ms = cuda_ms(lambda: torch.bmm(row_band, col_band))
+    bmm_dev = device_ms(lambda: torch.bmm(row_band, col_band))
+    tos_t = {}
+    for mode, name in ops.TOS_MODES.items():
+        extra = (centre,) if mode.startswith("batched") else ()
+        kern = getattr(tos_update, f"{name}_cuda")
+        plain = getattr(tos_update, f"{name}_ref")
+        t = dict(
+            ms=cuda_ms(lambda: kern(tos_in, xy_in, keep, *extra, **tkw)),
+            plain_ms=cuda_ms(lambda: plain(tos_in, xy_in, keep, *extra,
+                                           **tkw), iters=3, warmup=1),
+            device_ms=device_ms(lambda: kern(tos_in, xy_in, keep, *extra,
+                                             **tkw)),
+            plain_device_ms=device_ms(lambda: plain(tos_in, xy_in, keep,
+                                                    *extra, **tkw),
+                                      iters=3, warmup=1),
+            library_ms=bmm_ms if extra else None,
+            library_device_ms=bmm_dev if extra else None)
+        t["bound_ms"], t["bound_by"] = tos_bound(
+            b, h, w, e, 7, keep, centre=bool(extra))
+        tos_t[mode] = t
+        lib = (f"; library torch.bmm of the fp16 one-hot bands (counts "
+               f"only) {bmm_ms:.4f} ms events, {bmm_dev:.4f} ms device"
+               if extra else "")
+        print(f"[time] {smi}: {name} 1280x720 B=1 E=512 ({int(keep.sum())} "
+              f"kept): {t['ms']:.4f} ms events, {t['device_ms']:.4f} ms "
+              f"device; plain {t['plain_ms']:.4f} ms events, "
+              f"{t['plain_device_ms']:.4f} ms device; bound "
+              f"{t['bound_ms']:.6f} ms by {t['bound_by']}{lib}")
+
     # Profile of a short steady window of the HD step.
-    from torch.profiler import ProfilerActivity, profile
-    win = slice(0, 64 * hd_cfg.chunk)
-    pipeline.run_pipeline(hd.xy[win], hd.ts[win], hd_cfg)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    pipeline.run_pipeline(hd.xy[win], hd.ts[win], hd_cfg)
-    torch.cuda.synchronize()
-    plain_wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        pipeline.run_pipeline(hd.xy[win], hd.ts[win], hd_cfg)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # Device-side rows only (kernels, copies): an aten op's row repeats the
-    # device time of the kernels it launched.
-    rows = [r for r in prof.key_averages()
-            if str(r.device_type).endswith("CUDA")
-            and r.self_device_time_total > 0]
-    rows.sort(key=lambda r: -r.self_device_time_total)
-    groups = {"K1 fused_step.cu": ("stcf_score", "tos_patch", "ber_apply"),
-              "K2 harris.cu": ("harris_kernel",), "copies": ("Memcpy",
-                                                             "Memset")}
-    per = {g: 0.0 for g in (*groups, "plain torch (threefry, DVFS, ...)")}
-    for r in rows:
-        g = next((g for g, keys in groups.items()
-                  if any(k in r.key for k in keys)),
-                 "plain torch (threefry, DVFS, ...)")
-        per[g] += r.self_device_time_total / 1e3
-    dev_ms = sum(per.values())
-    print(f"[profile] {smi}: HD, 64 chunks: unprofiled wall "
-          f"{plain_wall_ms:.2f} ms, profiled wall {wall_ms:.2f} ms, device "
-          f"busy {dev_ms:.2f} ms, idle share "
-          f"{1 - dev_ms / plain_wall_ms:.3f} (of the unprofiled wall)")
-    for g, ms in per.items():
-        print(f"[profile]   {g}: {ms:.3f} ms ({ms / 64 * 1e3:.1f} us/chunk)")
-    ours = ("stcf_score", "tos_patch", "ber_apply", "harris_kernel",
-            "Memcpy")
-    for i, r in enumerate(rows):
-        if i < 10 or any(k in r.key for k in ours):
-            print(f"[profile]   {r.self_device_time_total / 1e3:9.3f} ms "
-                  f"x{r.count:<5d} {r.key[:90]}")
+    profile_hd(smi, "HD", hd, hd_cfg, {
+        "K1 fused_step.cu": ("stcf_score", "tos_patch", "ber_apply"),
+        "K2 harris.cu": ("harris_kernel",)})
 
     launches = {k: batch_launches[k] + serve_launches[k]
                 for k in serve_launches}
@@ -724,6 +950,15 @@ def main() -> int:
          "launches": launches["compact"], "max_abs_err": k3_err,
          "library_ms": None, **k3[4]},
     ]
+    replaces = {"nmc": 82, "batched": 328, "nmc_binned": 182,
+                "batched_binned": 292}
+    for mode, name in ops.TOS_MODES.items():
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/tos_update.cu",
+            "replaces": f"src/repro/kernels/tos_update.py:{replaces[mode]}",
+            "launches": tos_launches[mode], "max_abs_err": k47_err,
+            **tos_t[mode]})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -12,10 +12,13 @@ results in one transfer (``host_syncs == 1``).  ``run_pipeline_batched``
 does the same for B equal-length streams as B lanes of one state, so each
 chunk is one kernel launch for all lanes.
 
-Backends: ``"fused"`` (default; twin of the reference's ``"pallas_fused"``)
-runs the chunk block as kernel K1 and the LUT refresh as kernel K2 on a CUDA
-device; ``"torch"`` (twin of ``"jnp"``) composes the plain operators.  The
-device is ``cfg.device``: ``"cuda"`` by default, ``"cpu"`` where asked.
+Backends, each the twin of a reference backend: ``"fused"`` (default;
+``"pallas_fused"``) runs the chunk block as kernel K1; ``"nmc"``
+(``"pallas_nmc"``) and ``"batched"`` (``"pallas_batched"``) run plain STCF
+and scoring around the TOS update as kernel K4 (the event-by-event replay)
+or K5 (the closed form); all three refresh the LUT as kernel K2 on a CUDA
+device.  ``"torch"`` (``"jnp"``) composes the plain operators.  The device
+is ``cfg.device``: ``"cuda"`` by default, ``"cpu"`` where asked.
 """
 from __future__ import annotations
 
@@ -39,7 +42,10 @@ __all__ = [
     "run_pipeline_batched",
 ]
 
-BACKENDS = ("fused", "torch")
+BACKENDS = ("fused", "torch", "nmc", "batched")
+# The reference's backend names, each with the port's twin.
+_TWINS = {"pallas_fused": "fused", "jnp": "torch", "pallas_nmc": "nmc",
+          "pallas_batched": "batched"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,11 +106,11 @@ def _device(cfg: PipelineConfig) -> torch.device:
     """The run's device; asking for CUDA without it raises (never a silent
     CPU run)."""
     if cfg.backend not in BACKENDS:
-        raise ValueError(
-            f"backend {cfg.backend!r} is not in the port: use 'fused' (the "
-            f"twin of 'pallas_fused') or 'torch' (the twin of 'jnp'); "
-            f"'pallas_nmc' and 'pallas_batched' need the TPU kernels K4-K7, "
-            f"which are not ported yet")
+        twin = _TWINS.get(cfg.backend)
+        hint = (f"it is the reference's name; the port's twin is {twin!r}"
+                if twin else f"use one of {BACKENDS}")
+        raise ValueError(f"backend {cfg.backend!r} is not in the port: "
+                         f"{hint}")
     return state_mod.resolve_device(cfg.device)
 
 

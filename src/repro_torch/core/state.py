@@ -19,9 +19,12 @@ their own chunks.
 An optional host lane mask (the reference pool's ``_mask_tree``) leaves the
 inactive lanes' every leaf as it was.
 
-``cfg.backend == "fused"`` runs STCF/TOS/BER/score as the K1 kernel and the
-refresh as the K2 kernel (``kernels.ops``); ``"torch"`` runs their plain
-PyTorch versions on any device.  On CPU tensors both are plain PyTorch.
+``cfg.backend == "fused"`` runs STCF/TOS/BER/score as the K1 kernel;
+``"nmc"`` and ``"batched"`` run the reference's unfused order (plain STCF
+and LUT score, the TOS update as K4 or K5 over all lanes in one launch,
+then the BER write errors); these three refresh the LUT with the K2 kernel
+(``kernels.ops``).  ``"torch"`` runs the plain PyTorch versions on any
+device.  On CPU tensors every backend is plain PyTorch.
 
 The random stream is JAX's threefry with the reference's key discipline
 (one split per chunk iff injecting), so BER draws are draw-exact.
@@ -254,8 +257,8 @@ def _refresh_lut(cfg, state: DetectorState, surface, due: np.ndarray):
     host decision), in one launch over just those lanes."""
     if not due.any():
         return state.lut
-    harris = (ops.harris_response_op if cfg.backend == "fused"
-              else harris_mod.harris_response)
+    harris = (harris_mod.harris_response if cfg.backend == "torch"
+              else ops.harris_response_op)
     kw = dict(sobel_size=cfg.sobel_size, window_size=cfg.window_size,
               k=cfg.harris_k)
     if due.all():
@@ -300,6 +303,41 @@ def _keep_inactive(active: np.ndarray, new: DetectorState,
     return new._replace(rate=rate, **picked)
 
 
+def _tos_update_block(tos, sae, lut, xy, ts, valid, ber=None, bits=None, *,
+                      mode, patch, th, support, tw, stcf_enabled):
+    """The chunk block of backends ``"nmc"`` / ``"batched"``, in the
+    reference's unfused order: ``stcf_step`` and the LUT score per lane
+    (plain), the TOS update of the kept events through
+    ``ops.tos_update_op`` (K4 / K5, all lanes in one launch), then the BER
+    write errors with the step's bits.  Same signature and outputs as
+    ``fused_step.fused_step_ref``."""
+    saes, keeps, scores = [], [], []
+    for b in range(tos.shape[0]):
+        sae_b, keep_b = stcf_mod.stcf_step(
+            sae[b], xy[b], ts[b], valid[b], enabled=stcf_enabled,
+            support=support, tw=tw,
+        )
+        saes.append(sae_b)
+        keeps.append(keep_b)
+        scores.append(harris_mod.score_events(lut[b], xy[b], keep_b))
+    keep = torch.stack(keeps)
+    surface = ops.tos_update_op(tos, xy, keep, patch=patch, th=th, mode=mode)
+    if bits is not None:
+        surface = ber_mod.apply_write_errors(surface, bits, ber)
+    return surface, torch.stack(saes), keep, torch.stack(scores)
+
+
+def _chunk_block(backend: str) -> Callable:
+    """The STCF -> TOS -> BER -> score block of ``backend``."""
+    if backend == "fused":
+        return ops.fused_step_op
+    if backend == "torch":
+        return fused_step.fused_step_ref
+    if backend in ("nmc", "batched"):
+        return functools.partial(_tos_update_block, mode=backend)
+    raise ValueError(f"unknown backend {backend!r}")
+
+
 def detector_step(cfg, state: DetectorState, chunk: ChunkInput,
                   mask: Optional[np.ndarray] = None
                   ) -> tuple[DetectorState, ChunkOutput]:
@@ -307,12 +345,13 @@ def detector_step(cfg, state: DetectorState, chunk: ChunkInput,
     ``mask``); returns the new state and outputs.
 
     The chunk block (STCF -> TOS -> BER -> score) is K1 through
-    ``ops.fused_step_op`` on the ``"fused"`` backend and its plain
-    composition ``fused_step_ref`` on ``"torch"``, for all lanes in one
-    launch.  Both draw the BER bits here, with one key split per chunk iff
-    injecting, as the reference does.  K1 applies the bits to inactive
-    lanes too, so a masked step selects their old leaves back; their
-    cursors do not advance and their LUT is not rebuilt.
+    ``ops.fused_step_op`` on the ``"fused"`` backend, its plain
+    composition ``fused_step_ref`` on ``"torch"``, and on ``"nmc"`` /
+    ``"batched"`` plain STCF and score around K4 / K5 for all lanes in one
+    launch.  All draw the BER bits here, with one key split per chunk iff
+    injecting, as the reference does.  The block applies the bits to
+    inactive lanes too, so a masked step selects their old leaves back;
+    their cursors do not advance and their LUT is not rebuilt.
     """
     b = state.surface.shape[0]
     active = (np.ones(b, np.bool_) if mask is None
@@ -330,9 +369,7 @@ def detector_step(cfg, state: DetectorState, chunk: ChunkInput,
         key, sub = prng.split(key)
         bits = ber_mod.write_error_bits(sub, tuple(state.surface.shape[1:]),
                                         ber_c)
-    block = (ops.fused_step_op if cfg.backend == "fused"
-             else fused_step.fused_step_ref)
-    surface, sae, keep, raw = block(
+    surface, sae, keep, raw = _chunk_block(cfg.backend)(
         state.surface, state.sae, state.lut, chunk.xy, chunk.ts,
         chunk.valid, ber_c, bits, patch=cfg.patch, th=cfg.th,
         support=cfg.stcf_support, tw=cfg.stcf_tw_us,

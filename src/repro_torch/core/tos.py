@@ -65,15 +65,16 @@ def tos_update_sequential(
 
 def _suffix_cover_counts(xy: torch.Tensor, valid: torch.Tensor,
                          r: int) -> torch.Tensor:
-    """k_after[i] = #{ j > i : patch(e_j) contains centre(e_i) } (valid)."""
-    x = xy[:, 0].to(torch.int32)
-    y = xy[:, 1].to(torch.int32)
-    cover = ((x[None, :] - x[:, None]).abs() <= r) & (
-        (y[None, :] - y[:, None]).abs() <= r)
-    ar = torch.arange(xy.shape[0], device=xy.device)
+    """k_after[..., i] = #{ j > i : patch(e_j) contains centre(e_i) }
+    (valid); ``xy (..., E, 2)`` may carry a leading lane axis."""
+    x = xy[..., 0].to(torch.int32)
+    y = xy[..., 1].to(torch.int32)
+    cover = ((x[..., None, :] - x[..., :, None]).abs() <= r) & (
+        (y[..., None, :] - y[..., :, None]).abs() <= r)
+    ar = torch.arange(xy.shape[-2], device=xy.device)
     later = ar[None, :] > ar[:, None]
-    mask = cover & later & valid[None, :] & valid[:, None]
-    return mask.sum(1, dtype=torch.int32)
+    mask = cover & later & valid[..., None, :] & valid[..., :, None]
+    return mask.sum(-1, dtype=torch.int32)
 
 
 def _scatter_patch_counts(shape: tuple[int, int], xy: torch.Tensor,
@@ -97,16 +98,18 @@ def _scatter_last_center_value(shape: tuple[int, int], xy: torch.Tensor,
                                valid: torch.Tensor,
                                values: torch.Tensor) -> torch.Tensor:
     """Last-writer-wins scatter of per-event centre values (key i*512 + v
-    under a scatter-max); -1 where no valid event is centred."""
+    under a scatter-max); -1 where no valid event is centred.  ``xy
+    (..., E, 2)`` may carry a leading lane axis; the result is ``(..., H,
+    W)`` int32."""
     h, w = shape
-    e = xy.shape[0]
-    idx = torch.arange(e, dtype=torch.int32, device=xy.device)
+    lead = tuple(xy.shape[:-2])
+    idx = torch.arange(xy.shape[-2], dtype=torch.int32, device=xy.device)
     key = torch.where(valid, idx * 512 + values,
-                      torch.full_like(idx, -1))
-    flat = xy[:, 1].long() * w + xy[:, 0].long()
-    buf = torch.full((h * w,), -1, dtype=torch.int32, device=xy.device)
-    buf = buf.scatter_reduce(0, flat, key, reduce="amax", include_self=True)
-    buf = buf.reshape(h, w)
+                      torch.full_like(values, -1))
+    flat = xy[..., 1].long() * w + xy[..., 0].long()
+    buf = torch.full((*lead, h * w), -1, dtype=torch.int32, device=xy.device)
+    buf = buf.scatter_reduce(-1, flat, key, reduce="amax", include_self=True)
+    buf = buf.reshape(*lead, h, w)
     return torch.where(buf >= 0, buf % 512, torch.full_like(buf, -1))
 
 

@@ -7,6 +7,9 @@ plain PyTorch version.
   LUT (``csrc/harris.cu``).
 * ``compact``     — K3: stream compaction of result rows into kept-event
   records for the pool's compact readout (``csrc/compact.cu``).
+* ``tos_update``  — K4-K7: the chunked TOS update on its own (NMC replay,
+  closed form, and both binned per 128x128 tile; ``csrc/tos_update.cu``)
+  for the ``"nmc"`` / ``"batched"`` backends.
 * ``ops``         — the dispatching wrappers: a CPU tensor gets the plain
   version, a CUDA tensor gets the kernel (or an error).  Each counts its
   kernel launches.

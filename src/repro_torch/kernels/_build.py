@@ -19,11 +19,12 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["SOURCES", "BUILD_DIR", "build", "load", "nvcc_path"]
+__all__ = ["SOURCES", "BUILD_DIR", "build", "load", "nvcc_path",
+           "check_tensor"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("fused_step", "harris", "compact")
+SOURCES = ("fused_step", "harris", "compact", "tos_update")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -98,3 +99,17 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_library_path(name)))
             _loaded[name] = lib
         return lib
+
+
+def check_tensor(t, name, dtype, shape, device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device`` (what a launcher hands its kernel as a bare pointer)."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

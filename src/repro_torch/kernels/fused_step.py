@@ -63,18 +63,6 @@ def _lib():
     return fn
 
 
-def _check(t, name, dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def fused_step_cuda(tos, sae, lut, xy, ts, valid, ber=None, bits=None, *,
                     patch, th, support, tw, stcf_enabled):
     """Launch K1 on the tensors' CUDA device and current stream."""
@@ -89,15 +77,15 @@ def fused_step_cuda(tos, sae, lut, xy, ts, valid, ber=None, bits=None, *,
         raise ValueError(f"patch must be odd in [1, 31], got {patch}")
     if h >= 2**15 or w >= 2**16:
         raise ValueError(f"surface {h}x{w} too large for packed coordinates")
-    _check(tos, "tos", torch.uint8, (b, h, w), device)
-    _check(sae, "sae", torch.int32, (b, h, w), device)
-    _check(lut, "lut", torch.float32, (b, h, w), device)
-    _check(xy, "xy", torch.int32, (b, e, 2), device)
-    _check(ts, "ts", torch.int32, (b, e), device)
-    _check(valid, "valid", torch.bool, (b, e), device)
+    _build.check_tensor(tos, "tos", torch.uint8, (b, h, w), device)
+    _build.check_tensor(sae, "sae", torch.int32, (b, h, w), device)
+    _build.check_tensor(lut, "lut", torch.float32, (b, h, w), device)
+    _build.check_tensor(xy, "xy", torch.int32, (b, e, 2), device)
+    _build.check_tensor(ts, "ts", torch.int32, (b, e), device)
+    _build.check_tensor(valid, "valid", torch.bool, (b, e), device)
     if bits is not None:
-        _check(bits, "bits", torch.int32, (b, h, w), device)
-        _check(ber, "ber", torch.float32, (b,), device)
+        _build.check_tensor(bits, "bits", torch.int32, (b, h, w), device)
+        _build.check_tensor(ber, "ber", torch.float32, (b,), device)
 
     tos_out = torch.empty_like(tos)
     sae_out = torch.empty_like(sae)

@@ -1,10 +1,11 @@
 """The dispatching wrappers the detector step calls.
 
-``fused_step_op`` (K1), ``harris_response_op`` (K2) and
-``compact_slots_op`` (K3) take the tensor's device as the choice of spelling: a CPU tensor gets the plain PyTorch
-version, a CUDA tensor gets the hand-written kernel — or an error; there is
-no fallback from a CUDA tensor to a plain version.  Surfaces may be one
-``(H, W)`` lane or a ``(B, H, W)`` batch.
+``fused_step_op`` (K1), ``harris_response_op`` (K2), ``compact_slots_op``
+(K3) and ``tos_update_op`` (K4-K7) take the tensor's device as the choice
+of spelling: a CPU tensor gets the plain PyTorch version, a CUDA tensor
+gets the hand-written kernel — or an error; there is no fallback from a
+CUDA tensor to a plain version.  Surfaces may be one ``(H, W)`` lane or a
+``(B, H, W)`` batch.
 
 Each wrapper counts its kernel launches in ``LAUNCHES`` (plain calls on the
 CPU are not counted), so a run can show that its main path went through the
@@ -16,12 +17,20 @@ import math
 
 import torch
 
-from repro_torch.kernels import compact, fused_step, harris_conv
+from repro_torch.core import tos as tos_mod
+from repro_torch.kernels import compact, fused_step, harris_conv, tos_update
 
 __all__ = ["fused_step_op", "harris_response_op", "compact_slots_op",
-           "LAUNCHES", "reset_launch_counts"]
+           "tos_update_op", "centre_surface", "TOS_MODES", "LAUNCHES",
+           "reset_launch_counts"]
 
-LAUNCHES = {"fused_step": 0, "harris": 0, "compact": 0}
+# tos_update_op's modes, each with its kernel in ``kernels.tos_update``.
+TOS_MODES = {"nmc": "nmc_stream", "batched": "batched_fused",
+             "nmc_binned": "nmc_stream_binned",
+             "batched_binned": "batched_fused_binned"}
+
+LAUNCHES = {"fused_step": 0, "harris": 0, "compact": 0,
+            **{mode: 0 for mode in TOS_MODES}}
 
 
 def reset_launch_counts() -> None:
@@ -97,3 +106,41 @@ def compact_slots_op(scores: torch.Tensor, keep: torch.Tensor, *, cap: int):
         LAUNCHES["compact"] += 1
     return (idx.reshape(*lead, cap), val.reshape(*lead, cap),
             cnt.reshape(lead))
+
+
+def centre_surface(shape, xy, valid, *, patch: int, th: int):
+    """The batched modes' centre values, last writer wins, -1 where no
+    valid event is centred: the reference wrapper's closed form, computed
+    outside the kernel over the lane axis."""
+    k_after = tos_mod._suffix_cover_counts(xy, valid, (patch - 1) // 2)
+    vals = tos_mod._clamp_threshold(tos_mod.TOS_MAX - k_after, th)
+    return tos_mod._scatter_last_center_value(shape, xy, valid, vals)
+
+
+def tos_update_op(tos: torch.Tensor, xy: torch.Tensor, valid: torch.Tensor,
+                  *, patch: int = tos_mod.DEFAULT_PATCH,
+                  th: int = tos_mod.DEFAULT_TH, mode: str = "batched"):
+    """Chunked TOS update of ``(H, W)`` or ``(B, H, W)`` uint8 surfaces by
+    events ``xy (..., E, 2)`` int32 with ``valid (..., E)`` bool, all lanes
+    in one launch: ``mode`` ``"nmc"`` (K4), ``"batched"`` (K5),
+    ``"nmc_binned"`` (K6) or ``"batched_binned"`` (K7; both binned modes
+    lossless, ``cap = E``).  Every mode equals the event-by-event update."""
+    if mode not in TOS_MODES:
+        raise ValueError(f"unknown mode {mode!r}")
+    single = tos.dim() == 2
+    if single:
+        tos, xy, valid = tos[None], xy[None], valid[None]
+    extra = ()
+    if mode.startswith("batched"):
+        extra = (centre_surface(tuple(tos.shape[1:]), xy, valid,
+                                 patch=patch, th=th),)
+    name = TOS_MODES[mode]
+    if _device_type(tos) == "cpu":
+        out = getattr(tos_update, f"{name}_ref")(tos, xy, valid, *extra,
+                                                 patch=patch, th=th)
+    else:
+        out = getattr(tos_update, f"{name}_cuda")(
+            tos, xy.to(torch.int32).contiguous(), valid.contiguous(), *extra,
+            patch=patch, th=th)
+        LAUNCHES[mode] += 1
+    return out[0] if single else out

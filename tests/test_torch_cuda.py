@@ -16,6 +16,7 @@ from repro_torch.core.stcf import NEVER  # noqa: E402
 from repro_torch.core import pipeline  # noqa: E402
 from repro_torch.events import synthetic  # noqa: E402
 from repro_torch.kernels import compact, fused_step, harris_conv, ops  # noqa: E402,E501
+from repro_torch.kernels import tos_update  # noqa: E402
 from repro_torch.obs.schema import WALL_TIME_KEYS  # noqa: E402
 from repro_torch.serve import DetectorPool  # noqa: E402
 
@@ -96,10 +97,42 @@ def test_compact_kernel_matches_plain(cuda, e, cap, density):
         assert torch.equal(p, g.reshape(p.shape)), name
 
 
-def _serve_two_lanes(device):
+@pytest.mark.parametrize("hw", [(180, 240), (720, 1280), (37, 101)])
+@pytest.mark.parametrize("mode,cap", [
+    *((m, "lossless") for m in sorted(ops.TOS_MODES)),
+    ("nmc_binned", "truncating"), ("batched_binned", "truncating")])
+def test_tos_update_kernels_match_plain(cuda, mode, cap, hw):
+    """K4-K7 on the card equal their plain versions; the binned modes also
+    with a ``cap`` below the busiest 128-tile's hit count."""
+    rng = np.random.default_rng(hw[0] + len(mode))
+    tos, _, _, xy, _, valid = (t.to(cuda)
+                               for t in _lanes(rng, 3, *hw, 512))
+    kw = dict(patch=7, th=225)
+    name = ops.TOS_MODES[mode]
+    extra = ()
+    if mode.startswith("batched"):
+        extra = (ops.centre_surface(hw, xy, valid, **kw),)
+    if cap == "lossless":
+        plain = getattr(tos_update, f"{name}_ref")(tos, xy, valid, *extra,
+                                                   **kw)
+        before = ops.LAUNCHES[mode]
+        got = ops.tos_update_op(tos, xy, valid, mode=mode, **kw)
+        assert ops.LAUNCHES[mode] == before + 1
+    else:
+        bins, _ = tos_update.bin_events_to_tiles(
+            xy, valid, grid_hw=tos_update._grid(*hw), patch=7, cap=512)
+        c = int(bins[..., 2].sum(-1).max()) // 2
+        plain = getattr(tos_update, f"{name}_ref")(tos, xy, valid, *extra,
+                                                   cap=c, **kw)
+        got = getattr(tos_update, f"{name}_cuda")(tos, xy, valid, *extra,
+                                                  cap=c, **kw)
+    assert torch.equal(plain, got)
+
+
+def _serve_two_lanes(device, backend="fused"):
     cfg = pipeline.PipelineConfig(
         height=180, width=240, chunk=512, lut_every_chunks=2, dvfs=True,
-        dvfs_online=True, inject_ber=True, device=device)
+        dvfs_online=True, inject_ber=True, device=device, backend=backend)
     streams = [synthetic.shapes_stream(duration_us=60_000, seed=s)
                for s in (0, 1)]
     pool = DetectorPool(cfg, 2, ring_rounds=4, readout="compact")
@@ -120,14 +153,11 @@ def _serve_two_lanes(device):
              outs.items()}, stats)
 
 
-def test_pool_on_cuda_equals_cpu(cuda):
-    """A 2-lane pool (online DVFS with BER, compact readout, async drain)
-    on the card equals the same pool on the CPU: kept masks exact, scores
-    within ``1e-5 * max|R|``, stats equal apart from wall-clock keys."""
+def _assert_pool_cuda_equals_cpu(backend, used):
     ops.reset_launch_counts()
-    got, gstats = _serve_two_lanes("cuda")
-    assert min(ops.LAUNCHES.values()) > 0, ops.LAUNCHES
-    want, wstats = _serve_two_lanes("cpu")
+    got, gstats = _serve_two_lanes("cuda", backend)
+    assert min(ops.LAUNCHES[k] for k in used) > 0, ops.LAUNCHES
+    want, wstats = _serve_two_lanes("cpu", backend)
     for i in (0, 1):
         np.testing.assert_array_equal(got[i][1], want[i][1])
         fin = np.isfinite(want[i][0])
@@ -138,3 +168,16 @@ def test_pool_on_cuda_equals_cpu(cuda):
     for key in wstats:
         if key not in WALL_TIME_KEYS and key != "h2d_pinned_staging":
             assert gstats[key] == wstats[key], key
+
+
+def test_pool_on_cuda_equals_cpu(cuda):
+    """A 2-lane pool (online DVFS with BER, compact readout, async drain)
+    on the card equals the same pool on the CPU: kept masks exact, scores
+    within ``1e-5 * max|R|``, stats equal apart from wall-clock keys."""
+    _assert_pool_cuda_equals_cpu("fused", ("fused_step", "harris",
+                                           "compact"))
+
+
+def test_pool_batched_backend_on_cuda_equals_cpu(cuda):
+    """The same on backend ``"batched"``: K5, K2 and K3 on the card."""
+    _assert_pool_cuda_equals_cpu("batched", ("batched", "harris", "compact"))

@@ -35,11 +35,12 @@ def test_port_has_the_slice_modules():
                  "core.tos", "core.ber", "core.harris", "core.state",
                  "core.pipeline", "kernels._build", "kernels.fused_step",
                  "kernels.harris_conv", "kernels.ops", "kernels.compact",
+                 "kernels.tos_update",
                  "obs.metrics", "obs.sinks", "obs.schema", "obs.d2h",
                  "launch.sharding", "serve.streaming", "serve.scheduler",
                  "serve.runtime", "serve.pool"):
         assert "repro_torch." + name in MODULES
-    for src in ("fused_step", "harris", "compact"):
+    for src in ("fused_step", "harris", "compact", "tos_update"):
         assert (PORT / "csrc" / f"{src}.cu").is_file()
 
 

@@ -245,11 +245,91 @@ def test_reference_only_options_rejected(option):
         tp.PipelineConfig(device="cpu", **option)
 
 
-@pytest.mark.parametrize("backend", ["pallas_nmc", "pallas_batched", "jnp"])
+@pytest.mark.parametrize("backend", ["pallas_nmc", "pallas_batched", "jnp",
+                                     "pallas_fused"])
 def test_unported_backends_rejected(stream, backend):
+    """The reference's backend names are refused with the port's twin."""
+    twin = {"pallas_nmc": "nmc", "pallas_batched": "batched", "jnp": "torch",
+            "pallas_fused": "fused"}[backend]
     cfg = tp.PipelineConfig(height=H, width=W, backend=backend, device="cpu")
-    with pytest.raises(ValueError, match="K4|K5|fused"):
+    with pytest.raises(ValueError, match=f"twin is '{twin}'"):
         tp.run_pipeline(stream.xy, stream.ts, cfg)
+
+
+# The TOS-update backends and the reference backend each is the twin of.
+TOS_BACKENDS = {"nmc": "pallas_nmc", "batched": "pallas_batched"}
+TOS_MODES = {
+    "fixed": dict(),
+    "ber_0.6V": dict(inject_ber=True, vdd=0.6),
+    "dvfs_online_ber": dict(dvfs=True, dvfs_online=True, inject_ber=True),
+}
+TH, TW = 128, 128
+
+
+def _random_events(seed, e=512):
+    """The reference's backend-parity stream (tests/test_scan_pipeline.py):
+    uniform events on 128 x 128."""
+    rng = np.random.default_rng(seed)
+    xy = np.stack([rng.integers(0, TW, e), rng.integers(0, TH, e)],
+                  1).astype(np.int32)
+    return xy, np.sort(rng.integers(0, 20_000, e)).astype(np.int64)
+
+
+def _tos_configs(backend, mode):
+    base = dict(height=TH, width=TW, chunk=128, lut_every_chunks=2,
+                **TOS_MODES[mode])
+    return (jp.PipelineConfig(backend=TOS_BACKENDS[backend], **base),
+            tp.PipelineConfig(backend=backend, device="cpu", **base))
+
+
+@pytest.mark.parametrize("mode", sorted(TOS_MODES))
+@pytest.mark.parametrize("backend", sorted(TOS_BACKENDS))
+def test_tos_backends_match_reference(backend, mode):
+    """``"nmc"`` / ``"batched"`` equal the reference's ``"pallas_nmc"`` /
+    ``"pallas_batched"`` (interpret mode) and the port's ``"fused"``."""
+    xy, ts = _random_events(0)
+    jc, tc = _tos_configs(backend, mode)
+    got = tp.run_pipeline(xy, ts, tc)
+    _assert_results(got, jp.run_pipeline(xy, ts, jc))
+    fused = tp.run_pipeline(xy, ts, dataclasses.replace(tc, backend="fused"))
+    for field in ("scores", "kept", "tos", "lut", "vdd_trace"):
+        np.testing.assert_array_equal(getattr(got, field),
+                                      getattr(fused, field))
+
+
+@pytest.mark.parametrize("backend", sorted(TOS_BACKENDS))
+def test_tos_backends_batched_lanes_match_reference(backend):
+    """``run_pipeline_batched`` with two lanes (own streams and seeds)."""
+    evs = [_random_events(s) for s in (1, 2)]
+    xy = np.stack([x for x, _ in evs])
+    ts = np.stack([t for _, t in evs])
+    jc, tc = _tos_configs(backend, "dvfs_online_ber")
+    got = tp.run_pipeline_batched(xy, ts, tc, seeds=[3, 4])
+    want = jp.run_pipeline_batched(xy, ts, jc, seeds=[3, 4])
+    for g, w in zip(got, want):
+        _assert_results(g, w)
+
+
+@pytest.mark.parametrize("backend", sorted(TOS_BACKENDS))
+def test_tos_backends_carry_reference_state(stream, backend):
+    """A mid-stream reference state (``pallas_*`` backend) restored into
+    the port finishes exactly as the reference does."""
+    jc, tc = _with_backend(_configs(**MODES["ber_0.6V"]), False)
+    jc = dataclasses.replace(jc, backend=TOS_BACKENDS[backend])
+    tc = dataclasses.replace(tc, backend=backend)
+    jfull, jouts, _, _ = _scan_both(stream, jc, tc)
+    half = jouts.keep.shape[0] // 2
+    jmid, _, tmid, _ = _scan_both(stream, jc, tc, hi=half)
+    _assert_state(tmid, jmid)
+    tprep = tp._prepare(stream.xy, stream.ts, tc)
+    rest = ts_.ChunkInput(*(t[half:] for t in tp._chunk_inputs([tprep],
+                                                                "cpu")))
+    tfin, touts = ts_.detector_scan(
+        tc, ts_.state_from_numpy(jmid, device="cpu"), rest)
+    _assert_state(tfin, jfull)
+    np.testing.assert_array_equal(touts.keep[:, 0].numpy(),
+                                  jouts.keep[half:])
+    _close(touts.scores[:, 0].numpy(), jouts.scores[half:])
 
 
 def test_empty_stream_matches_reference():

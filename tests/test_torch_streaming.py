@@ -255,3 +255,28 @@ def test_stats_match_reference_and_golden_keys(stream):
     got, want = tdet.stats(), jdet.stats()
     assert got.keys() == golden.keys()
     assert got == want
+
+
+@pytest.mark.parametrize("mode", ["fixed", "dvfs_online"])
+@pytest.mark.parametrize("backend", ["nmc", "batched"])
+def test_session_tos_backends(backend, mode):
+    """Backends ``"nmc"`` / ``"batched"`` fed in slabs of 97
+    (tests/test_streaming.py) against the reference session on
+    ``"pallas_nmc"`` / ``"pallas_batched"``, and against the port's batch
+    fold of the same stream."""
+    rng = np.random.default_rng(0)
+    e, h, w = 512, 64, 64
+    xy = np.stack([rng.integers(0, w, e), rng.integers(0, h, e)],
+                  1).astype(np.int32)
+    ts = np.sort(rng.integers(0, 20_000, e)).astype(np.int64)
+    base = dict(height=h, width=w, chunk=CHUNK, lut_every_chunks=2,
+                **MODES[mode])
+    jc = jp.PipelineConfig(backend=f"pallas_{backend}", **base)
+    tc = tp.PipelineConfig(backend=backend, device="cpu", **base)
+    jdet, tdet = JSession(jc, seed=3), TSession(tc, seed=3)
+    slabs = [97] * 6
+    tout = _feed(tdet, xy, ts, slabs)
+    assert_sessions_equal(tdet, jdet, tout, _feed(jdet, xy, ts, slabs))
+    ref = tp.run_pipeline(xy, ts, dataclasses.replace(tc, seed=3))
+    np.testing.assert_array_equal(tout[0], ref.scores)
+    np.testing.assert_array_equal(tout[1], ref.kept)
