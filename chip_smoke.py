@@ -8,7 +8,7 @@ Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of this repository.  Phases, each printing its own lines:
 
   1. environment: the card's name and power limit, and the ``nvcc`` build
-     of the four kernel sources (``csrc/*.cu``, built in parallel for
+     of the five kernel sources (``csrc/*.cu``, built in parallel for
      ``sm_90a``);
   2. K1 (fused chunk step) against its plain PyTorch version on the card,
      at 180x240 and 1280x720, 512 events, 1 and 4 lanes, BER off and on:
@@ -19,7 +19,11 @@ checkout of this repository.  Phases, each printing its own lines:
      TOS update on its own: NMC replay, closed form, and both binned per
      128x128 tile) against their plain versions at both sizes, 512 events,
      1 and 4 lanes, the binned ones with ``cap = E`` and with a ``cap``
-     that truncates: every output equal;
+     that truncates, then K5/K7 on the edge cases of their 64x64 tiles
+     (``TOS_EDGE_CASES``: E of 1, 300 and 8192, patches 1, 3 and 31, 8192
+     events in one 128-tile, ragged sizes, 4 lanes, a background below
+     ``th``; K7 with ``cap`` E, 1 and half the busiest tile's hits): every
+     output equal;
   4. end to end on the DAVIS240 sensor (180x240): ``run_pipeline`` with
      BER at a fixed 0.6 V and with online DVFS, on the card and on the CPU
      (plain versions), held to the parity bounds; PR-AUC printed;
@@ -45,8 +49,8 @@ checkout of this repository.  Phases, each printing its own lines:
      per call from the profiler (``device_ms``, ``plain_device_ms``, which
      leave out the device's wait for the host to enqueue); for K5 and K7
      also one ``torch.bmm`` of the fp16 one-hot bands, the counts part
-     only, as the library yardstick; a profile of the HD step, and the
-     JSON summary line.
+     only, as the library yardstick, at 1280x720 and at DAVIS240; a
+     profile of the HD step, and the JSON summary line.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -278,6 +282,106 @@ def tos_kernel_phase(rng, dev, sizes=((180, 240), (720, 1280)),
     return float(err)
 
 
+def one_hot_bands(xy, valid, h, w, patch, dtype):
+    """The closed form's operands over the whole surface: ``row_band (B, H,
+    E)`` and ``col_band (B, E, W)``, 1 where a valid event's patch covers
+    the row / column; ``row_band @ col_band`` is the cover count."""
+    import torch
+    r = (patch - 1) // 2
+    rows = torch.arange(h, device=xy.device)
+    cols = torch.arange(w, device=xy.device)
+    row_band = (((rows[None, :, None] - xy[..., 1][:, None, :]).abs() <= r)
+                & valid[:, None, :]).to(dtype)
+    col_band = (((cols[None, None, :] - xy[..., 0][:, :, None]).abs() <= r)
+                & valid[:, :, None]).to(dtype)
+    return row_band, col_band
+
+
+# K5/K7 edge cases for the 64x64 tiles of csrc/tos_count.cu: (what, B, H,
+# W, E, patch, event layout, background below th).
+TOS_EDGE_CASES = (
+    ("one event", 1, 720, 1280, 1, 7, "spread", False),
+    ("E=300", 1, 720, 1280, 300, 7, "clusters", False),
+    ("E=8192", 1, 720, 1280, 8192, 7, "clusters", False),
+    ("patch 1", 1, 180, 240, 512, 1, "clusters", False),
+    ("patch 3", 1, 180, 240, 512, 3, "clusters", False),
+    ("patch 31", 1, 180, 240, 512, 31, "clusters", False),
+    ("8192 events in one 128-tile", 1, 720, 1280, 8192, 7, "one_tile",
+     False),
+    ("ragged 37x101", 2, 37, 101, 300, 7, "spread", False),
+    ("720 rows, W=330", 1, 720, 330, 512, 9, "clusters", False),
+    ("B=4", 4, 720, 1280, 300, 5, "clusters", False),
+    ("background below th", 2, 180, 240, 512, 7, "clusters", True),
+)
+
+
+def tos_edge_inputs(rng, b, h, w, e, layout, below_th, dev, th=225):
+    """A surface and a chunk per lane.  ``layout``: ``spread`` (uniform),
+    ``clusters`` (eight centres, +-6 px) or ``one_tile`` (every event in a
+    12 x 12 square on 64-tile borders inside the 128-tile at x 128..255,
+    y 0..127, so counts reach the thousands).  ``below_th``: a uniform
+    0..255 background instead of {0} U [th, 255]."""
+    import numpy as np
+    import torch
+    tos = rng.integers(0, 256, (b, h, w))
+    if not below_th:
+        tos = np.where(rng.random((b, h, w)) < 0.3,
+                       rng.integers(th, 256, (b, h, w)), 0)
+    if layout == "spread":
+        xy = np.stack([rng.integers(0, w, (b, e)),
+                       rng.integers(0, h, (b, e))], -1)
+    elif layout == "clusters":
+        centres = rng.integers(0, (w, h), (b, 8, 2))
+        pick = centres[np.arange(b)[:, None], rng.integers(0, 8, (b, e))]
+        xy = np.clip(pick + rng.integers(-6, 7, (b, e, 2)), 0,
+                     (w - 1, h - 1))
+    else:
+        xy = np.array([186, 58]) + rng.integers(0, 12, (b, e, 2))
+    valid = rng.random((b, e)) < 0.9
+    valid[:, 0] = True
+    return [torch.from_numpy(a).to(dev) for a in
+            (tos.astype(np.uint8), xy.astype(np.int32), valid)]
+
+
+def tos_edge_phase(rng, dev, cases=TOS_EDGE_CASES):
+    """Phase 3c, second part: K5 and K7 (cap E, 1 and half the busiest
+    128-tile's hits) against their plain versions on ``cases``; returns
+    (max |delta|, cases checked).  Small cases with the plain versions
+    standing in for the kernels rehearse it on the CPU."""
+    import torch
+    from repro_torch.kernels import ops, tos_update
+    err, n = 0, 0
+    for what, b, h, w, e, patch, layout, below in cases:
+        tos, xy, valid = tos_edge_inputs(rng, b, h, w, e, layout, below, dev)
+        kw = dict(patch=patch, th=225)
+        centre = ops.centre_surface((h, w), xy, valid, **kw)
+        bins, _ = tos_update.bin_events_to_tiles(
+            xy, valid, grid_hw=tos_update._grid(h, w), patch=patch, cap=e)
+        busiest = int(bins[..., 2].sum(-1).max())
+        checks = [("batched_fused", {}), ("batched_fused_binned", {}),
+                  ("batched_fused_binned", dict(cap=1)),
+                  ("batched_fused_binned", dict(cap=max(1, busiest // 2)))]
+        for name, ckw in checks:
+            plain = getattr(tos_update, f"{name}_ref")(
+                tos, xy, valid, centre, **kw, **ckw)
+            got = getattr(tos_update, f"{name}_cuda")(
+                tos, xy, valid, centre, **kw, **ckw)
+            sync(dev)
+            if not torch.equal(plain, got):
+                raise AssertionError(f"{name} {ckw} differs: {what}")
+            err = max(err, int((plain.int() - got.int()).abs().max()))
+            n += 1
+        row_band, col_band = one_hot_bands(xy, valid, h, w, patch,
+                                           torch.float32)
+        top = int(torch.bmm(row_band, col_band).max())
+        print(f"[K5/K7] {what}: B={b} {h}x{w} E={e} patch {patch}: batched "
+              f"and batched_binned (cap E, 1, {max(1, busiest // 2)}) "
+              f"equal to plain; busiest 128-tile {busiest} hits, largest "
+              f"cover count {top}")
+    print(f"[K5/K7] {n} edge cases equal")
+    return float(err), n
+
+
 def tos_backend_phase(smi, davis, hd, davis_cfgs, gpu_runs, cpu_runs,
                       hd_cfg, *, device="cuda", fold_chunks=128):
     """Phase 5b: the TOS-update backends on ``device``.  Returns the launch
@@ -332,7 +436,8 @@ def tos_backend_phase(smi, davis, hd, davis_cfgs, gpu_runs, cpu_runs,
               f"ms/chunk (host clock, incl. upload and one fetch)")
         if device != "cpu":
             profile_hd(smi, f"HD {backend}", hd, cfg, {
-                "K4/K5 tos_update.cu": ("tos_tile_kernel",),
+                "K4 tos_update.cu": ("nmc_tile_kernel",),
+                "K5 tos_count.cu": ("tos_count_kernel",),
                 "K2 harris.cu": ("harris_kernel",)})
 
     # The binned modes through the op a caller uses: the HD stream's first
@@ -722,6 +827,7 @@ def main() -> int:
 
     # --- 3c. K4-K7 against their plain versions -------------------------
     k47_err = tos_kernel_phase(np.random.default_rng(13), dev)
+    k57_err, _ = tos_edge_phase(np.random.default_rng(14), dev)
 
     # --- 4/5. the main path: run_pipeline on the card ------------------
     davis = synthetic.shapes_stream(duration_us=200_000, seed=0)
@@ -873,54 +979,64 @@ def main() -> int:
               f"{t['plain_device_ms']:.4f} ms device; bound "
               f"{t['bound_ms']:.7f} ms by {t['bound_by']}")
 
-    # K4-K7 at the main path's shapes: HD, B=1, E=512, K1's kept events.
+    # K4-K7 at the main path's shapes: HD, B=1, E=512, K1's kept events;
+    # K5/K7 also at DAVIS240, where the 64x64 tiles are dense.
     from repro_torch.kernels import tos_update
     tkw = dict(patch=7, th=225)
-    tos_in, xy_in = ins[0], ins[3]
-    centre = ops.centre_surface((h, w), xy_in, keep, **tkw)
-    r = (tkw["patch"] - 1) // 2
-    rows = torch.arange(h, device=dev)
-    cols = torch.arange(w, device=dev)
-    y_ev, x_ev = xy_in[..., 1], xy_in[..., 0]
-    row_band = (((rows[None, :, None] - y_ev[:, None, :]).abs() <= r)
-                & keep[:, None, :]).half()                  # (B, H, E)
-    col_band = (((cols[None, None, :] - x_ev[:, :, None]).abs() <= r)
-                & keep[:, :, None]).half()                  # (B, E, W)
-    k_total = torch.bmm(row_band, col_band)
-    bg = tos_update.batched_fused_cuda(
-        tos_in, xy_in, keep, torch.full_like(centre, -1), **tkw)
-    want_bg = tos_in.int() - k_total.int()
-    if not torch.equal(bg.int(), torch.where(want_bg >= 225, want_bg, 0)):
-        raise AssertionError("the bmm yardstick's counts differ from K5's")
-    bmm_ms = cuda_ms(lambda: torch.bmm(row_band, col_band))
-    bmm_dev = device_ms(lambda: torch.bmm(row_band, col_band))
+    dav = k1_inputs(rng, 1, 180, 240, e, dev, inject=True)
+    dav_keep = fused_step.fused_step_cuda(*dav[0], dav[1], dav[2], **kw)[2]
     tos_t = {}
-    for mode, name in ops.TOS_MODES.items():
-        extra = (centre,) if mode.startswith("batched") else ()
-        kern = getattr(tos_update, f"{name}_cuda")
-        plain = getattr(tos_update, f"{name}_ref")
-        t = dict(
-            ms=cuda_ms(lambda: kern(tos_in, xy_in, keep, *extra, **tkw)),
-            plain_ms=cuda_ms(lambda: plain(tos_in, xy_in, keep, *extra,
-                                           **tkw), iters=3, warmup=1),
-            device_ms=device_ms(lambda: kern(tos_in, xy_in, keep, *extra,
-                                             **tkw)),
-            plain_device_ms=device_ms(lambda: plain(tos_in, xy_in, keep,
-                                                    *extra, **tkw),
-                                      iters=3, warmup=1),
-            library_ms=bmm_ms if extra else None,
-            library_device_ms=bmm_dev if extra else None)
-        t["bound_ms"], t["bound_by"] = tos_bound(
-            b, h, w, e, 7, keep, centre=bool(extra))
-        tos_t[mode] = t
-        lib = (f"; library torch.bmm of the fp16 one-hot bands (counts "
-               f"only) {bmm_ms:.4f} ms events, {bmm_dev:.4f} ms device"
-               if extra else "")
-        print(f"[time] {smi}: {name} 1280x720 B=1 E=512 ({int(keep.sum())} "
-              f"kept): {t['ms']:.4f} ms events, {t['device_ms']:.4f} ms "
-              f"device; plain {t['plain_ms']:.4f} ms events, "
-              f"{t['plain_device_ms']:.4f} ms device; bound "
-              f"{t['bound_ms']:.6f} ms by {t['bound_by']}{lib}")
+    for (th_, tw_), t_ins, t_keep in (((h, w), ins, keep),
+                                      ((180, 240), dav[0], dav_keep)):
+        hd_shape = (th_, tw_) == (h, w)
+        tos_in, xy_in = t_ins[0], t_ins[3]
+        centre = ops.centre_surface((th_, tw_), xy_in, t_keep, **tkw)
+        row_band, col_band = one_hot_bands(xy_in, t_keep, th_, tw_, 7,
+                                           torch.half)
+        k_total = torch.bmm(row_band, col_band)
+        bg = tos_update.batched_fused_cuda(
+            tos_in, xy_in, t_keep, torch.full_like(centre, -1), **tkw)
+        want_bg = tos_in.int() - k_total.int()
+        if not torch.equal(bg.int(), torch.where(want_bg >= 225, want_bg,
+                                                 0)):
+            raise AssertionError("the bmm yardstick's counts differ from "
+                                 "K5's")
+        bmm_ms = cuda_ms(lambda: torch.bmm(row_band, col_band))
+        bmm_dev = device_ms(lambda: torch.bmm(row_band, col_band))
+        for mode, name in ops.TOS_MODES.items():
+            extra = (centre,) if mode.startswith("batched") else ()
+            if not (hd_shape or extra):
+                continue
+            kern = getattr(tos_update, f"{name}_cuda")
+            plain = getattr(tos_update, f"{name}_ref")
+            t = dict(
+                ms=cuda_ms(lambda: kern(tos_in, xy_in, t_keep, *extra,
+                                        **tkw)),
+                device_ms=device_ms(lambda: kern(tos_in, xy_in, t_keep,
+                                                 *extra, **tkw)),
+                library_ms=bmm_ms if extra else None,
+                library_device_ms=bmm_dev if extra else None)
+            t["bound_ms"], t["bound_by"] = tos_bound(
+                1, th_, tw_, e, 7, t_keep, centre=bool(extra))
+            lib = (f"; library torch.bmm of the fp16 one-hot bands (counts "
+                   f"only) {bmm_ms:.4f} ms events, {bmm_dev:.4f} ms device, "
+                   f"kernel/bmm device {t['device_ms'] / bmm_dev:.2f}"
+                   if extra else "")
+            if hd_shape:
+                t["plain_ms"] = cuda_ms(lambda: plain(
+                    tos_in, xy_in, t_keep, *extra, **tkw), iters=3, warmup=1)
+                t["plain_device_ms"] = device_ms(lambda: plain(
+                    tos_in, xy_in, t_keep, *extra, **tkw), iters=3,
+                    warmup=1)
+                tos_t[mode] = t
+                lib = (f"; plain {t['plain_ms']:.4f} ms events, "
+                       f"{t['plain_device_ms']:.4f} ms device{lib}")
+            else:
+                tos_t[mode]["davis240"] = t
+            print(f"[time] {smi}: {name} {tw_}x{th_} B=1 E={e} "
+                  f"({int(t_keep.sum())} kept): {t['ms']:.4f} ms events, "
+                  f"{t['device_ms']:.4f} ms device; bound "
+                  f"{t['bound_ms']:.6f} ms by {t['bound_by']}{lib}")
 
     # Profile of a short steady window of the HD step.
     profile_hd(smi, "HD", hd, hd_cfg, {
@@ -953,11 +1069,13 @@ def main() -> int:
     replaces = {"nmc": 82, "batched": 328, "nmc_binned": 182,
                 "batched_binned": 292}
     for mode, name in ops.TOS_MODES.items():
+        src = "tos_count" if mode.startswith("batched") else "tos_update"
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "src/repro_torch/csrc/tos_update.cu",
+            "source": f"src/repro_torch/csrc/{src}.cu",
             "replaces": f"src/repro/kernels/tos_update.py:{replaces[mode]}",
-            "launches": tos_launches[mode], "max_abs_err": k47_err,
+            "launches": tos_launches[mode], "max_abs_err": max(
+                k47_err, k57_err if src == "tos_count" else 0.0),
             **tos_t[mode]})
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,15 +1,14 @@
-// K4-K7: the TOS update of one chunk, on its own, for B lanes in one launch.
+// K4 and K6: the NMC replay of one chunk, on its own, for B lanes in one
+// launch.
 //
-// Replaces four TPU kernels of src/repro/kernels/tos_update.py:
+// Replaces two TPU kernels of src/repro/kernels/tos_update.py:
 //   K4 `nmc_stream_call` (`_nmc_stream_kernel`): per 128x128 VMEM tile, a
 //      fori_loop replays every event: patch decrement with the th clamp,
 //      then centre := 255;
-//   K5 `batched_fused_call` (`_batched_fused_kernel_vmem`): per tile,
-//      k_total = RowBand^T @ ColBand as a float32 one-hot matmul on the MXU,
-//      then clamp(tos - k_total) with the precomputed centre values overlaid;
-//   K6 `nmc_stream_binned_call` / K7 `batched_fused_binned_call`: K4 / K5
-//      over each 128x128 tile's bin of at most `cap` events (the first cap
-//      valid events, in stream order, whose patch touches the tile).
+//   K6 `nmc_stream_binned_call`: K4 over each 128x128 tile's bin of at most
+//      `cap` events (the first cap valid events, in stream order, whose
+//      patch touches the tile).
+// K5/K7, the closed form, have their own kernel (tos_count.cu).
 //
 // A pixel's value after the chunk depends only on the ordered events whose
 // patch covers it, so no barrier between events is needed when each thread
@@ -24,29 +23,23 @@
 //       and rank < cap.  The kept events whose patch touches the block's own
 //       32x8 tile are appended, in order, to a list in shared memory as
 //       coordinates relative to the tile (a second ballot).  With cap = E
-//       (K4, K5) nothing is dropped.  Ranking against the 128x128 tile and
-//       not the block's sub-tile is what keeps K6/K7 equal to the reference
+//       (K4) nothing is dropped.  Ranking against the 128x128 tile and
+//       not the block's sub-tile is what keeps K6 equal to the reference
 //       when a tile's hits exceed cap: an event near a tile border may be
 //       kept by one tile and dropped by its neighbour.
-//   (2) update: each thread takes its pixel and walks the list.  NMC mode
-//       (K4, K6) replays each covering event: v = v-1 >= th ? v-1 : 0, and
-//       v = 255 at its centre.  COUNT mode (K5, K7) counts the covering
-//       events as an exact integer, then v = tos - count clamped at th, and
-//       v = centre where centre >= 0.
+//   (2) update: each thread takes its pixel and walks the list, replaying
+//       each covering event: v = v-1 >= th ? v-1 : 0, and v = 255 at its
+//       centre.
 //
 // Invalid events are skipped; patches are clipped at the image edge (the
 // reference pads to 128-multiples and crops the padding away).
 //
 // Bound on the H100: bytes.  Each input byte read once and each output byte
 // written once: at 1280x720, B=1, E=512 that is tos in and out (1.84 MB)
-// plus the events, ~0.55 us at 3.35 TB/s for K4/K6, and with the int32
-// centre surface (3.69 MB) ~1.65 us for K5/K7; the integer work (E x P^2
-// patch updates) is far below it.  This design reads every event once per
-// block in phase (1) (3,600 blocks at 720p, from L2) and keeps no surface
-// in shared memory; the tile update is a single coalesced pass.  The TPU
-// form of K5 is a float32 one-hot matmul; for Hopper's tensor cores the
-// 0/1 band operands are exact in fp16 with fp32 accumulation, which is the
-// later redesign (wgmma over bands staged by TMA).
+// plus the events, ~0.55 us at 3.35 TB/s; the integer work (E x P^2 patch
+// updates) is far below it.  This design reads every event once per block
+// in phase (1) (3,600 blocks at 720p, from L2) and keeps no surface in
+// shared memory; the tile update is a single coalesced pass.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -57,8 +50,6 @@ constexpr int TILE_H = 8;
 constexpr int THREADS = TILE_W * TILE_H;
 constexpr int WARPS = THREADS / 32;
 constexpr int REF_TILE = 128;   // the reference's tile: bins are per tile
-
-enum Mode { NMC = 0, COUNT = 1 };
 
 // Exclusive prefix over the warps' totals in `tot`; returns the total.
 __device__ __forceinline__ int warp_prefix(const int* tot, int warp,
@@ -74,12 +65,10 @@ __device__ __forceinline__ int warp_prefix(const int* tot, int warp,
   return t;
 }
 
-template <int MODE>
 __global__ void __launch_bounds__(THREADS)
-tos_tile_kernel(const uint8_t* __restrict__ tos_in,
+nmc_tile_kernel(const uint8_t* __restrict__ tos_in,
                 const int* __restrict__ xy,
                 const uint8_t* __restrict__ valid,
-                const int* __restrict__ centre,
                 uint8_t* __restrict__ tos_out,
                 int H, int W, int E, int r, int th, int cap) {
   extern __shared__ int list[];   // kept, touching events: ry << 16 | rx
@@ -135,47 +124,27 @@ tos_tile_kernel(const uint8_t* __restrict__ tos_in,
   const size_t p = (size_t)b * H * W + (size_t)py * W + px;
   const int cx = lx + r, cy = ly + r;   // the pixel in list coordinates
   int val = tos_in[p];
-  if (MODE == NMC) {
-    for (int k = 0; k < n_list; ++k) {
-      const int ent = list[k];
-      const int ex = ent & 0xffff, ey = ent >> 16;
-      if (abs(ex - cx) <= r && abs(ey - cy) <= r) {
-        val = (val - 1 >= th) ? val - 1 : 0;
-        if (ex == cx && ey == cy) val = 255;
-      }
+  for (int k = 0; k < n_list; ++k) {
+    const int ent = list[k];
+    const int ex = ent & 0xffff, ey = ent >> 16;
+    if (abs(ex - cx) <= r && abs(ey - cy) <= r) {
+      val = (val - 1 >= th) ? val - 1 : 0;
+      if (ex == cx && ey == cy) val = 255;
     }
-  } else {
-    int count = 0;
-    for (int k = 0; k < n_list; ++k) {
-      const int ent = list[k];
-      count += abs((ent & 0xffff) - cx) <= r && abs((ent >> 16) - cy) <= r;
-    }
-    val -= count;
-    val = val >= th ? val : 0;
-    const int c = centre[p];
-    if (c >= 0) val = c;
   }
   tos_out[p] = (uint8_t)val;
 }
 
-int launch(int mode, const uint8_t* tos_in, const int* xy,
-           const uint8_t* valid, const int* centre, uint8_t* tos_out, int B,
-           int H, int W, int E, int patch, int th, int cap, void* stream) {
+int launch(const uint8_t* tos_in, const int* xy, const uint8_t* valid,
+           uint8_t* tos_out, int B, int H, int W, int E, int patch, int th,
+           int cap, void* stream) {
   if (B < 1 || H < 1 || W < 1 || E < 1 || patch < 1 || patch > 31 ||
-      patch % 2 == 0 || cap < 1 || cap > E || B > 65535 ||
-      (mode == COUNT && centre == nullptr))
+      patch % 2 == 0 || cap < 1 || cap > E || B > 65535)
     return (int)cudaErrorInvalidValue;
   const dim3 grid((W + TILE_W - 1) / TILE_W, (H + TILE_H - 1) / TILE_H, B);
   const size_t smem = (size_t)E * sizeof(int);
-  cudaStream_t s = (cudaStream_t)stream;
-  const int r = (patch - 1) / 2;
-  if (mode == NMC) {
-    tos_tile_kernel<NMC><<<grid, THREADS, smem, s>>>(
-        tos_in, xy, valid, centre, tos_out, H, W, E, r, th, cap);
-  } else {
-    tos_tile_kernel<COUNT><<<grid, THREADS, smem, s>>>(
-        tos_in, xy, valid, centre, tos_out, H, W, E, r, th, cap);
-  }
+  nmc_tile_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      tos_in, xy, valid, tos_out, H, W, E, (patch - 1) / 2, th, cap);
   return (int)cudaGetLastError();
 }
 
@@ -189,8 +158,8 @@ extern "C" int nmc_stream_launch(const uint8_t* tos_in, const int* xy,
                                  void* stream) {
   (void)centre;
   (void)cap;
-  return launch(NMC, tos_in, xy, valid, nullptr, tos_out, B, H, W, E, patch,
-                th, E, stream);
+  return launch(tos_in, xy, valid, tos_out, B, H, W, E, patch, th, E,
+                stream);
 }
 
 // K6: each 128x128 tile's first `cap` hits.
@@ -200,29 +169,6 @@ extern "C" int nmc_stream_binned_launch(const uint8_t* tos_in, const int* xy,
                                         int B, int H, int W, int E, int patch,
                                         int th, int cap, void* stream) {
   (void)centre;
-  return launch(NMC, tos_in, xy, valid, nullptr, tos_out, B, H, W, E, patch,
-                th, cap, stream);
-}
-
-// K5: counts over every event, threshold, centre overlay.
-extern "C" int batched_fused_launch(const uint8_t* tos_in, const int* xy,
-                                    const uint8_t* valid, const int* centre,
-                                    uint8_t* tos_out, int B, int H, int W,
-                                    int E, int patch, int th, int cap,
-                                    void* stream) {
-  (void)cap;
-  return launch(COUNT, tos_in, xy, valid, centre, tos_out, B, H, W, E, patch,
-                th, E, stream);
-}
-
-// K7: K5's counts over each 128x128 tile's first `cap` hits.
-extern "C" int batched_fused_binned_launch(const uint8_t* tos_in,
-                                           const int* xy,
-                                           const uint8_t* valid,
-                                           const int* centre,
-                                           uint8_t* tos_out, int B, int H,
-                                           int W, int E, int patch, int th,
-                                           int cap, void* stream) {
-  return launch(COUNT, tos_in, xy, valid, centre, tos_out, B, H, W, E, patch,
-                th, cap, stream);
+  return launch(tos_in, xy, valid, tos_out, B, H, W, E, patch, th, cap,
+                stream);
 }

@@ -16,10 +16,12 @@ surface without the rest of the step (``repro.kernels.tos_update``):
   (halo ``r``).  Tiles are those of the surface padded to multiples of
   128, as in the reference; ``cap=0`` means ``cap=E``, which is lossless.
 
-``*_cuda`` launch ``csrc/tos_update.cu``.  ``*_ref`` are the plain
-versions, written as the TPU kernels are: over the padded 128 x 128 tiles,
-a serial replay of each tile's events (K4, K6) or a float32 row-band x
-column-band product of each tile's events (K5, K7), then cropped.
+``*_cuda`` launch ``csrc/tos_update.cu`` (K4, K6: a per-pixel replay) and
+``csrc/tos_count.cu`` (K5, K7: counts on the tensor cores).  ``*_ref`` are
+the plain versions, written as the TPU kernels are: over the padded
+128 x 128 tiles, a serial replay of each tile's events (K4, K6) or a
+float32 row-band x column-band product of each tile's events (K5, K7),
+then cropped.
 
 Shapes (B lanes, H x W surface, E events): tos ``(B,H,W)`` uint8, xy
 ``(B,E,2)`` int32 as (x=col, y=row), valid ``(B,E)`` bool, centre
@@ -51,7 +53,7 @@ __all__ = [
 ]
 
 TILE = 128           # the reference's tile edge; K6/K7 bin per such tile
-MAX_EVENTS = 8192    # a block stages its events in shared memory
+MAX_EVENTS = 8192    # a block stages its tile's events in shared memory
 
 
 def _grid(h: int, w: int) -> tuple[int, int]:
@@ -199,16 +201,18 @@ def batched_fused_binned_ref(tos, xy, valid, centre, *, patch: int, th: int,
 
 # -- CUDA launchers --------------------------------------------------------
 
+# kernel -> (source in csrc/, C entry point)
 _ENTRY = {
-    "nmc_stream": "nmc_stream_launch",
-    "nmc_stream_binned": "nmc_stream_binned_launch",
-    "batched_fused": "batched_fused_launch",
-    "batched_fused_binned": "batched_fused_binned_launch",
+    "nmc_stream": ("tos_update", "nmc_stream_launch"),
+    "nmc_stream_binned": ("tos_update", "nmc_stream_binned_launch"),
+    "batched_fused": ("tos_count", "batched_fused_launch"),
+    "batched_fused_binned": ("tos_count", "batched_fused_binned_launch"),
 }
 
 
 def _lib(name: str):
-    fn = getattr(_build.load("tos_update"), _ENTRY[name])
+    source, entry = _ENTRY[name]
+    fn = getattr(_build.load(source), entry)
     if fn.argtypes is None:
         # tos_in, xy, valid, centre, tos_out; B, H, W, E, patch, th, cap
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
@@ -243,7 +247,7 @@ def _launch(name, tos, xy, valid, centre, *, patch, th, cap):
             None if centre is None else centre.data_ptr(), out.data_ptr(),
             b, h, w, e, patch, th, cap, stream)
     if err != 0:
-        raise RuntimeError(f"{_ENTRY[name]} failed: CUDA error {err}")
+        raise RuntimeError(f"{_ENTRY[name][1]} failed: CUDA error {err}")
     return out
 
 

@@ -97,17 +97,88 @@ def test_compact_kernel_matches_plain(cuda, e, cap, density):
         assert torch.equal(p, g.reshape(p.shape)), name
 
 
-@pytest.mark.parametrize("hw", [(180, 240), (720, 1280), (37, 101)])
-@pytest.mark.parametrize("mode,cap", [
-    *((m, "lossless") for m in sorted(ops.TOS_MODES)),
-    ("nmc_binned", "truncating"), ("batched_binned", "truncating")])
-def test_tos_update_kernels_match_plain(cuda, mode, cap, hw):
+# Every mode at three sizes, the binned ones also with a cap below the
+# busiest 128-tile's hits.
+_TOS_CASES = [
+    dict(mode=mode, cap=cap, hw=hw)
+    for hw in ((180, 240), (720, 1280), (37, 101))
+    for mode, cap in (*((m, "lossless") for m in sorted(ops.TOS_MODES)),
+                      ("nmc_binned", "truncating"),
+                      ("batched_binned", "truncating"))]
+# K5/K7 on the edge cases of the 64x64 tiles of csrc/tos_count.cu: (hw, B,
+# E, patch, event layout, background below th), each through K5 and K7
+# with cap E, 1 and half the busiest 128-tile's hits.
+_TOS_EDGE = (
+    ((720, 1280), 1, 1, 7, "spread", False),
+    ((720, 1280), 1, 300, 7, "clusters", False),
+    ((720, 1280), 1, 8192, 7, "clusters", False),
+    ((180, 240), 1, 512, 1, "clusters", False),
+    ((180, 240), 1, 512, 3, "clusters", False),
+    ((180, 240), 1, 512, 31, "clusters", False),
+    ((720, 1280), 1, 8192, 7, "one_tile", False),
+    ((37, 101), 2, 300, 7, "spread", False),
+    ((720, 330), 1, 512, 9, "clusters", False),
+    ((720, 1280), 4, 300, 5, "clusters", False),
+    ((180, 240), 2, 512, 7, "clusters", True),
+)
+_TOS_CASES += [
+    dict(mode=mode, cap=cap, hw=hw, b=b, e=e, patch=patch, layout=layout,
+         below_th=below)
+    for hw, b, e, patch, layout, below in _TOS_EDGE
+    for mode, cap in (("batched", "lossless"), ("batched_binned", "lossless"),
+                      ("batched_binned", "one"),
+                      ("batched_binned", "truncating"))]
+
+
+def _edge_inputs(rng, b, h, w, e, layout, below_th, th=225):
+    """``spread`` (uniform), ``clusters`` (eight centres, +-6 px) or
+    ``one_tile`` (every event in a 12 x 12 square on 64-tile borders inside
+    one 128-tile: cover counts in the thousands); a uniform 0..255
+    background when ``below_th``."""
+    tos = rng.integers(0, 256, (b, h, w))
+    if not below_th:
+        tos = np.where(rng.random((b, h, w)) < 0.3,
+                       rng.integers(th, 256, (b, h, w)), 0)
+    if layout == "spread":
+        xy = np.stack([rng.integers(0, w, (b, e)),
+                       rng.integers(0, h, (b, e))], -1)
+    elif layout == "clusters":
+        c = rng.integers(0, (w, h), (b, 8, 2))
+        pick = c[np.arange(b)[:, None], rng.integers(0, 8, (b, e))]
+        xy = np.clip(pick + rng.integers(-6, 7, (b, e, 2)), 0,
+                     (w - 1, h - 1))
+    else:
+        xy = np.array([186, 58]) + rng.integers(0, 12, (b, e, 2))
+    valid = rng.random((b, e)) < 0.9
+    valid[:, 0] = True
+    return [torch.from_numpy(a) for a in
+            (tos.astype(np.uint8), xy.astype(np.int32), valid)]
+
+
+def _case_id(case):
+    h, w = case["hw"]
+    tail = ("-B{b}-E{e}-p{patch}-{layout}".format(**case)
+            + ("-below_th" if case["below_th"] else "")) if "e" in case else ""
+    return f"{case['mode']}-{case['cap']}-{h}x{w}{tail}"
+
+
+@pytest.mark.parametrize("case", _TOS_CASES, ids=_case_id)
+def test_tos_update_kernels_match_plain(cuda, case):
     """K4-K7 on the card equal their plain versions; the binned modes also
-    with a ``cap`` below the busiest 128-tile's hit count."""
-    rng = np.random.default_rng(hw[0] + len(mode))
-    tos, _, _, xy, _, valid = (t.to(cuda)
-                               for t in _lanes(rng, 3, *hw, 512))
-    kw = dict(patch=7, th=225)
+    with a ``cap`` below the busiest 128-tile's hit count (and K7 with cap
+    1), K5/K7 also on the edge cases of their tiling."""
+    mode, cap, hw = case["mode"], case["cap"], case["hw"]
+    rng = np.random.default_rng(hw[0] + len(mode) + case.get("e", 0))
+    if "e" in case:
+        patch = case["patch"]
+        tos, xy, valid = (t.to(cuda) for t in _edge_inputs(
+            rng, case["b"], *hw, case["e"], case["layout"],
+            case["below_th"]))
+    else:
+        patch = 7
+        tos, _, _, xy, _, valid = (t.to(cuda)
+                                   for t in _lanes(rng, 3, *hw, 512))
+    kw = dict(patch=patch, th=225)
     name = ops.TOS_MODES[mode]
     extra = ()
     if mode.startswith("batched"):
@@ -120,8 +191,10 @@ def test_tos_update_kernels_match_plain(cuda, mode, cap, hw):
         assert ops.LAUNCHES[mode] == before + 1
     else:
         bins, _ = tos_update.bin_events_to_tiles(
-            xy, valid, grid_hw=tos_update._grid(*hw), patch=7, cap=512)
-        c = int(bins[..., 2].sum(-1).max()) // 2
+            xy, valid, grid_hw=tos_update._grid(*hw), patch=patch,
+            cap=xy.shape[1])
+        c = 1 if cap == "one" else max(1, int(bins[..., 2].sum(-1).max())
+                                       // 2)
         plain = getattr(tos_update, f"{name}_ref")(tos, xy, valid, *extra,
                                                    cap=c, **kw)
         got = getattr(tos_update, f"{name}_cuda")(tos, xy, valid, *extra,

@@ -40,7 +40,7 @@ def test_port_has_the_slice_modules():
                  "launch.sharding", "serve.streaming", "serve.scheduler",
                  "serve.runtime", "serve.pool"):
         assert "repro_torch." + name in MODULES
-    for src in ("fused_step", "harris", "compact", "tos_update"):
+    for src in ("fused_step", "harris", "compact", "tos_update", "tos_count"):
         assert (PORT / "csrc" / f"{src}.cu").is_file()
 
 

@@ -169,6 +169,66 @@ def test_binned_cap_matches_reference_kernel(kernel, cap_kind, patch):
         assert not torch.equal(got, lossless)   # the cap really dropped hits
 
 
+# The cases the 64x64 tiles of the card's K5/K7 make risky, small enough for
+# interpret mode: (h, w, e, patch, layout, background).  ``one_tile`` puts
+# every event in a 12 x 12 square across 64-tile borders (cover counts
+# above 100, ten 32-event chunks); ``below_th`` is a uniform 0..255
+# background, which the threshold zeroes where no event covers it.
+EDGE_CASES = {
+    "patch31": (100, 130, 40, 31, "spread", "tos"),
+    "e37": (90, 140, 37, 7, "spread", "tos"),
+    "clustered": (128, 200, 300, 7, "one_tile", "tos"),
+    "below_th": (80, 120, 64, 5, "spread", "below_th"),
+}
+
+
+def _edge(case):
+    h, w, e, patch, layout, background = EDGE_CASES[case]
+    rng = np.random.default_rng(h + e + patch)
+    tos = (rng.integers(0, 256, (h, w)).astype(np.uint8)
+           if background == "below_th" else make_tos(rng, h, w))
+    xy, valid = make_events(rng, h, w, e)
+    if layout == "one_tile":
+        xy = (np.array([58, 58]) + rng.integers(0, 12, (e, 2))).astype(
+            np.int32)
+    return tos, xy, valid, patch
+
+
+@pytest.mark.parametrize("case", sorted(EDGE_CASES))
+@pytest.mark.parametrize("mode", ["batched", "batched_binned"])
+def test_batched_edge_cases_match_reference(case, mode):
+    tos, xy, valid, patch = _edge(case)
+    got, want = _both(tos, xy, valid, patch=patch, mode=mode)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("case", sorted(EDGE_CASES))
+@pytest.mark.parametrize("cap_kind", ["one", "half"])
+def test_batched_binned_cap_edge_cases(case, cap_kind):
+    """Plain K7 with cap 1 and half the busiest tile's hits against the
+    reference's ``batched_fused_binned_call`` on the edge cases."""
+    tos, xy, valid, patch = _edge(case)
+    h, w = tos.shape
+    th, r = 225, (patch - 1) // 2
+    jx, jv = jnp.asarray(xy), jnp.asarray(valid)
+    grid = (-(-h // t_tu.TILE), -(-w // t_tu.TILE))
+    bins, _ = j_tu.bin_events_to_tiles(jx, jv, grid_hw=grid, patch=patch,
+                                       cap=len(xy))
+    busiest = int(np.asarray(bins)[..., 2].sum(-1).max())
+    cap = 1 if cap_kind == "one" else max(1, busiest // 2)
+    vals = j_tos._clamp_threshold(
+        255 - j_tos._suffix_cover_counts(jx, jv, r), th)
+    centre = j_tos._scatter_last_center_value((h, w), jx, jv, vals)
+    want = j_tu.batched_fused_binned_call(jnp.asarray(tos), jx, jv, centre,
+                                          patch=patch, th=th, cap=cap,
+                                          interpret=True)
+    tx, tv = torch.from_numpy(xy)[None], torch.from_numpy(valid)[None]
+    tcentre = ops.centre_surface((h, w), tx, tv, patch=patch, th=th)
+    got = t_tu.batched_fused_binned_ref(torch.from_numpy(tos)[None], tx, tv,
+                                        tcentre, patch=patch, th=th, cap=cap)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want))
+
+
 @pytest.mark.parametrize("name", ["nmc_stream", "nmc_stream_binned",
                                   "batched_fused", "batched_fused_binned"])
 def test_launchers_refuse_cpu_tensors(name):
