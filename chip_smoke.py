@@ -10,20 +10,25 @@ checkout of this repository.  Phases, each printing its own lines:
   1. environment: the card's name and power limit, and the ``nvcc`` build
      of the five kernel sources (``csrc/*.cu``, built in parallel for
      ``sm_90a``);
-  2. K1 (fused chunk step) against its plain PyTorch version on the card,
-     at 180x240 and 1280x720, 512 events, 1 and 4 lanes, BER off and on:
-     every output must be equal;
-  3. K2 (Harris response) against its plain version at both sizes, within
-     ``1e-5 * max|R|``; K3 (stream compaction) against its plain version
-     over rows x events x cap x density: every output equal; K4-K7 (the
-     TOS update on its own: NMC replay, closed form, and both binned per
-     128x128 tile) against their plain versions at both sizes, 512 events,
-     1 and 4 lanes, the binned ones with ``cap = E`` and with a ``cap``
-     that truncates, then K5/K7 on the edge cases of their 64x64 tiles
-     (``TOS_EDGE_CASES``: E of 1, 300 and 8192, patches 1, 3 and 31, 8192
-     events in one 128-tile, ragged sizes, 4 lanes, a background below
-     ``th``; K7 with ``cap`` E, 1 and half the busiest tile's hits): every
-     output equal;
+  2. K1 (fused chunk step) in place (``fused_step_cuda_``), functional
+     and under a lane mask against its plain PyTorch version on the card,
+     on ``K1_CASES`` (180x240 and 1280x720 at 1 and 4 lanes; E of 1, 300
+     and 8192; patches 1, 3 and 31; 8192 events in one 64x64 tile; ragged
+     37x101 and 720x330; STCF off; 16 lanes with a mask), each with BER
+     off, on, and 0 in every other lane: every output equal, masked lanes
+     byte-identical, the functional call's inputs untouched;
+  3. K2 (Harris response) against its plain version at Sobel 3/5/7 x
+     window 1/3/5/7, at 37x101, 180x240 and 1280x720, 1 and 4 lanes, bit
+     for bit, Sobel 1 refused; K3 (stream compaction) against its plain
+     version over rows x events x cap x density: every output equal;
+     K4-K7 (the TOS update on its own: NMC replay, closed form, and both
+     binned per 128x128 tile) against their plain versions at both sizes,
+     512 events, 1 and 4 lanes, the binned ones with ``cap = E`` and with
+     a ``cap`` that truncates, then K5/K7 on the edge cases of their 64x64
+     tiles (``TOS_EDGE_CASES``: E of 1, 300 and 8192, patches 1, 3 and
+     31, 8192 events in one 128-tile, ragged sizes, 4 lanes, a background
+     below ``th``; K7 with ``cap`` E, 1 and half the busiest tile's hits):
+     every output equal;
   4. end to end on the DAVIS240 sensor (180x240): ``run_pipeline`` with
      BER at a fixed 0.6 V and with online DVFS, on the card and on the CPU
      (plain versions), held to the parity bounds; PR-AUC printed;
@@ -47,10 +52,15 @@ checkout of this repository.  Phases, each printing its own lines:
      bytes and operations: CUDA events over back-to-back calls (the JSON's
      ``ms`` and ``plain_ms``, as in the first slice) and the device time
      per call from the profiler (``device_ms``, ``plain_device_ms``, which
-     leave out the device's wait for the host to enqueue); for K5 and K7
+     leave out the device's wait for the host to enqueue); K1 in place on
+     fresh copies of one state, per pass, at 1280x720 with and without BER
+     and at the DAVIS240 x16 pool's shape; K2 at 1280x720 and DAVIS240 x16
+     beside its byte bound and its operation floor at the exact rounding
+     contract; for K5 and K7
      also one ``torch.bmm`` of the fp16 one-hot bands, the counts part
      only, as the library yardstick, at 1280x720 and at DAVIS240; a
-     profile of the HD step, and the JSON summary line.
+     profile of the HD step (K1 per pass, K2, device-to-device copies per
+     chunk), and the JSON summary line.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -69,6 +79,8 @@ sys.path.insert(0, str(ROOT / "src"))
 REL = 1e-5                   # LUT / score bound: |delta| <= REL * max|ref|
 MEM_BPS = 3.35e12            # H100 SXM HBM3, bytes/s (data sheet)
 FP32_OPS = 66.9e12           # H100 SXM float32 outside the tensor cores
+FP32_ROUNDED = FP32_OPS / 2  # separately rounded adds or multiplies: the
+                             # peak counts an FMA as two operations
 INT32_OPS = 132 * 64 * 1.98e9   # 64 INT32 lanes per SM, 132 SMs, 1.98 GHz
 
 
@@ -101,6 +113,16 @@ def device_ms(fn, iters=30, warmup=3) -> float:
     kernel and copy it launches, from the profiler, over ``iters``
     back-to-back calls.  Unlike ``cuda_ms`` it does not count the gaps in
     which the device waits for the host to enqueue the next call."""
+    return device_split(fn, (), iters, warmup)[0]
+
+
+# K1's two kernels, as the profiler names them.
+K1_KERNELS = ("stcf_score_kernel", "fused_tile_kernel")
+
+
+def device_split(fn, names, iters=30, warmup=3):
+    """``device_ms`` of ``fn`` and the device time per call of each kernel
+    whose name holds one of ``names`` (ms)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
@@ -111,8 +133,12 @@ def device_ms(fn, iters=30, warmup=3) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return sum(r.self_device_time_total for r in prof.key_averages()
-               if str(r.device_type).endswith("CUDA")) / 1e3 / iters
+    rows = [r for r in prof.key_averages()
+            if str(r.device_type).endswith("CUDA")]
+    total = sum(r.self_device_time_total for r in rows) / 1e3 / iters
+    per = {n: sum(r.self_device_time_total for r in rows if n in r.key)
+           / 1e3 / iters for n in names}
+    return total, per
 
 
 def k1_inputs(rng, b, h, w, e, dev, *, inject):
@@ -187,25 +213,26 @@ def k1_bound(b, h, w, e, patch, xy, valid, keep, inject):
 
 
 def k2_bound(b, h, w, sobel=5, window=5):
-    """Least time for one K2 call: tos read and R written once; float32
-    operations of a separable form: ``/255``, each Sobel gradient as a
-    column and a row pass over its factors' nonzero taps (an FMA, two
-    operations, per tap) on the window halo, three products, each of the
-    three box sums as two passes of ``window - 1`` adds, and the det/trace
-    tail."""
+    """Least time for one K2 call at its exact rounding contract: tos read
+    and R written once (bytes), against the float32 operations the
+    bit-equal spelling needs, each separately rounded add or multiply one
+    instruction (``FP32_ROUNDED``): ``/255`` per pixel; on the gradient
+    region (the surface plus the window halo) a multiply and an add per
+    nonzero Sobel tap of gx and gy and the three products
+    ``wtap * (g * g)``; per pixel 3 x window^2 adds and the 7-operation
+    det/trace tail.  Returns (bound ms, what bounds it, bytes ms,
+    operations ms)."""
     import numpy as np
     from repro_torch.core.harris import sobel_kernels
-    taps = 0
-    for g in map(np.asarray, sobel_kernels(sobel)):
-        taps += (np.count_nonzero(g.any(axis=1))
-                 + np.count_nonzero(g.any(axis=0))
-                 if np.linalg.matrix_rank(g) == 1 else np.count_nonzero(g))
+    gx, gy = sobel_kernels(sobel)
     rw = window // 2
     grad = b * (h + 2 * rw) * (w + 2 * rw)
-    ops = grad * (1 + 2 * taps + 3) + b * h * w * (3 * 2 * (window - 1) + 7)
-    nbytes = b * h * w * (1 + 4)
-    t_b, t_o = nbytes / MEM_BPS, int(ops) / FP32_OPS
-    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+    pix = b * h * w
+    ops = (pix + grad * (2 * np.count_nonzero(gx) + 2 * np.count_nonzero(gy)
+                         + 6) + pix * (3 * window * window + 7))
+    t_b, t_o = pix * (1 + 4) / MEM_BPS, int(ops) / FP32_ROUNDED
+    return (max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations"),
+            t_b * 1e3, t_o * 1e3)
 
 
 def k3_bound(keep, cap):
@@ -382,6 +409,169 @@ def tos_edge_phase(rng, dev, cases=TOS_EDGE_CASES):
     return float(err), n
 
 
+# K1 cases for csrc/fused_step.cu's two passes: (what, B, H, W, E, patch,
+# event layout, stcf_enabled, lane mask).  Each runs with BER off, on in
+# every lane, and on with ber = 0 in every other lane.  The first four are
+# the first slice's cases.
+K1_CASES = (
+    ("DAVIS240", 1, 180, 240, 512, 7, "clusters", True, False),
+    ("DAVIS240 x4", 4, 180, 240, 512, 7, "clusters", True, False),
+    ("HD", 1, 720, 1280, 512, 7, "clusters", True, False),
+    ("HD x4", 4, 720, 1280, 512, 7, "clusters", True, False),
+    ("one event", 1, 720, 1280, 1, 7, "spread", True, False),
+    ("E=300", 1, 720, 1280, 300, 7, "clusters", True, False),
+    ("E=8192", 1, 720, 1280, 8192, 7, "clusters", True, False),
+    ("patch 1", 1, 180, 240, 512, 1, "clusters", True, False),
+    ("patch 3", 1, 180, 240, 512, 3, "clusters", True, False),
+    ("patch 31", 1, 180, 240, 512, 31, "clusters", True, False),
+    ("8192 events in one 64x64 tile", 1, 720, 1280, 8192, 7, "one_tile",
+     True, False),
+    ("ragged 37x101", 2, 37, 101, 300, 7, "spread", True, False),
+    ("720 rows, W=330", 1, 720, 330, 512, 9, "clusters", True, False),
+    ("stcf_enabled=False", 2, 180, 240, 512, 7, "clusters", False, False),
+    ("B=16 with a lane mask", 16, 180, 240, 512, 7, "clusters", True, True),
+)
+
+
+def k1_case_inputs(rng, b, h, w, e, layout, dev):
+    """A busy mid-stream state and one chunk per lane (``layout`` as in
+    ``tos_edge_inputs``; ``one_tile`` puts every event in a 12 x 12 square
+    inside the 64x64 tile at x 64..127, y 0..63)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.stcf import NEVER
+    tos = np.where(rng.random((b, h, w)) < 0.3,
+                   rng.integers(225, 256, (b, h, w)), 0)
+    sae = np.full((b, h, w), NEVER, np.int32)
+    seen = rng.random((b, h, w)) < 0.4
+    sae[seen] = rng.integers(0, 30_000, seen.sum())
+    lut = rng.standard_normal((b, h, w)).astype(np.float32)
+    if layout == "spread":
+        xy = np.stack([rng.integers(0, w, (b, e)),
+                       rng.integers(0, h, (b, e))], -1)
+    elif layout == "clusters":
+        centres = rng.integers(0, (w, h), (b, 8, 2))
+        pick = centres[np.arange(b)[:, None], rng.integers(0, 8, (b, e))]
+        xy = np.clip(pick + rng.integers(-6, 7, (b, e, 2)), 0,
+                     (w - 1, h - 1))
+    else:
+        xy = np.array([90, 26]) + rng.integers(0, 12, (b, e, 2))
+    ts = np.sort(rng.integers(25_000, 40_000, (b, e)), axis=1)
+    valid = rng.random((b, e)) < 0.9
+    valid[:, 0] = True
+    return [torch.from_numpy(a).to(dev) for a in
+            (tos.astype(np.uint8), sae, lut, xy.astype(np.int32),
+             ts.astype(np.int32), valid)]
+
+
+def k1_phase(rng, dev, cases=K1_CASES):
+    """Phase 2: K1 in place (``fused_step_cuda_``), functional
+    (``fused_step_cuda``) and, where the case has one, under a lane mask,
+    against ``fused_step_ref`` bit for bit; masked lanes must come out
+    byte-identical and the functional call must leave its inputs alone.
+    Returns (max |delta|, checks).  Small cases with the plain versions
+    standing in for the kernels rehearse it on the CPU."""
+    import torch
+    from repro_torch.core import ber as ber_mod
+    from repro_torch.core import prng
+    from repro_torch.kernels import fused_step
+    err, n = 0.0, 0
+    for what, b, h, w, e, patch, layout, stcf, masked in cases:
+        ins = k1_case_inputs(rng, b, h, w, e, layout, dev)
+        kw = dict(patch=patch, th=225, support=2, tw=5000,
+                  stcf_enabled=stcf)
+        keys = torch.stack([prng.prng_key(i, device=dev) for i in range(b)])
+        mask = (torch.arange(b, device=dev) % 4 != 1) if masked else None
+        for ber_mode in ("off", "on", "some 0"):
+            rate = [0.025 if ber_mode == "on" or i % 2 == 0 else 0.0
+                    for i in range(b)]
+            ber = torch.tensor(rate, dtype=torch.float32, device=dev)
+            bits = (None if ber_mode == "off" else
+                    ber_mod.write_error_bits(keys, (h, w), ber))
+            plain = fused_step.fused_step_ref(*ins, ber, bits, mask=mask,
+                                              **kw)
+            before = [t.clone() for t in ins[:2]]
+            got = fused_step.fused_step_cuda(*ins, ber, bits, mask=mask,
+                                             **kw)
+            tos_, sae_ = ins[0].clone(), ins[1].clone()
+            got_ = fused_step.fused_step_cuda_(tos_, sae_, *ins[2:], ber,
+                                               bits, mask=mask, **kw)
+            sync(dev)
+            if got_[0] is not tos_ or got_[1] is not sae_:
+                raise AssertionError(f"K1 in place returned new tensors: "
+                                     f"{what}")
+            for t, t0 in zip(ins[:2], before):
+                if not torch.equal(t, t0):
+                    raise AssertionError(f"K1 functional changed its "
+                                         f"inputs: {what}")
+            for spelling, out in (("functional", got), ("in place", got_)):
+                for name, p, g in zip(("tos", "sae", "keep", "scores"),
+                                      plain, out):
+                    if not torch.equal(p, g):
+                        raise AssertionError(
+                            f"K1 {spelling} {name} differs: {what}, BER "
+                            f"{ber_mode}")
+                    fin = torch.isfinite(p.double())
+                    if fin.any():
+                        err = max(err, float(
+                            (p.double() - g.double())[fin].abs().max()))
+                if masked:
+                    off = ~mask
+                    for name, g, t0 in zip(("tos", "sae"), out, before):
+                        if not torch.equal(g[off], t0[off]):
+                            raise AssertionError(
+                                f"K1 {spelling} changed a masked lane's "
+                                f"{name}: {what}, BER {ber_mode}")
+                n += 1
+        print(f"[K1] {what}: B={b} {h}x{w} E={e} patch {patch} stcf "
+              f"{'on' if stcf else 'off'}{', masked' if masked else ''}: "
+              f"in place and functional equal to plain with BER off, on, "
+              f"and 0 in every other lane (kept {int(plain[2].sum())}/"
+              f"{b * e})")
+    print(f"[K1] {n} checks equal, max |delta| {err}")
+    return err, n
+
+
+def k2_phase(rng, dev, sizes=((37, 101), (180, 240), (720, 1280)),
+             lanes=(1, 4), sobels=(3, 5, 7), windows=(1, 3, 5, 7)):
+    """Phase 3: K2 against ``harris_ref`` at every (Sobel, window) pair,
+    bit for bit (the float32 words compared as int32); Sobel 1, which has
+    no odd operator, must be refused.  Returns (max |delta|, checks).
+    Small sizes with the plain version standing in rehearse it on the
+    CPU."""
+    import torch
+    from repro_torch.kernels import harris_conv
+    err, n = 0.0, 0
+    for h, w in sizes:
+        for b in lanes:
+            tos = k1_case_inputs(rng, b, h, w, 1, "spread", dev)[0]
+            for ks in sobels:
+                for ws in windows:
+                    kw = dict(sobel_size=ks, window_size=ws)
+                    plain = harris_conv.harris_ref(tos, **kw)
+                    got = harris_conv.harris_cuda(tos, **kw)
+                    sync(dev)
+                    if not torch.equal(got.view(torch.int32),
+                                       plain.view(torch.int32)):
+                        d = float((got - plain).abs().max())
+                        raise AssertionError(
+                            f"K2 {h}x{w} B={b} sobel {ks} window {ws}: "
+                            f"not bit-equal, max |delta| {d:.3g}")
+                    err = max(err, float((got - plain).abs().max()))
+                    n += 1
+            print(f"[K2] {h}x{w} B={b}: bit-equal to plain at Sobel "
+                  f"{'/'.join(map(str, sobels))} x window "
+                  f"{'/'.join(map(str, windows))}")
+    try:
+        harris_conv.harris_cuda(tos, sobel_size=1)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("K2 took Sobel size 1")
+    print(f"[K2] {n} checks bit-equal, max |delta| {err}; Sobel 1 refused")
+    return err, n
+
+
 def tos_backend_phase(smi, davis, hd, davis_cfgs, gpu_runs, cpu_runs,
                       hd_cfg, *, device="cuda", fold_chunks=128):
     """Phase 5b: the TOS-update backends on ``device``.  Returns the launch
@@ -510,6 +700,9 @@ def profile_hd(smi, what, hd, cfg, groups, chunks=64):
     for g, ms in per.items():
         print(f"[profile]   {g}: {ms:.3f} ms "
               f"({ms / chunks * 1e3:.1f} us/chunk)")
+    dtod = sum(r.count for r in rows if "DtoD" in r.key)
+    print(f"[profile]   device-to-device copies: {dtod} "
+          f"({dtod / chunks:.2f} per chunk)")
     ours = [k for keys in groups.values() for k in keys]
     for i, r in enumerate(rows):
         if i < 10 or any(k in r.key for k in ours):
@@ -703,10 +896,14 @@ def profile_pool(smi, what, cfg, streams, seeds, n_events, reps=3,
           f"{1 - busy / wall:.3f} (min {1 - busy / walls[0]:.3f}, max "
           f"{1 - busy / walls[-1]:.3f}); {n_launch} kernels and copies, "
           f"{n_launch / rounds:.0f} per round")
-    for r in sorted((r for r in dev_rows if r.self_device_time_total > 0),
-                    key=lambda r: -r.self_device_time_total)[:8]:
-        print(f"[serve]   {r.self_device_time_total / 1e3:9.3f} ms "
-              f"x{r.count:<5d} {r.key[:90]}")
+    ours = (*K1_KERNELS, "harris_kernel", "compact_kernel")
+    for i, r in enumerate(sorted(
+            (r for r in dev_rows if r.self_device_time_total > 0),
+            key=lambda r: -r.self_device_time_total)):
+        if i < 8 or any(k in r.key for k in ours):
+            print(f"[serve]   {r.self_device_time_total / 1e3:9.3f} ms "
+                  f"x{r.count:<5d} ({r.self_device_time_total / r.count:.1f}"
+                  f" us each) {r.key[:80]}")
 
 
 def same_results(a, b, what):
@@ -764,42 +961,10 @@ def main() -> int:
 
     # --- 2. K1 against its plain version -------------------------------
     rng = np.random.default_rng(0)
-    k1_err = 0.0
-    kw = dict(patch=7, th=225, support=2, tw=5000, stcf_enabled=True)
-    for h, w in ((180, 240), (720, 1280)):
-        for b in (1, 4):
-            for inject in (False, True):
-                ins, ber, bits = k1_inputs(rng, b, h, w, 512, dev,
-                                           inject=inject)
-                plain = fused_step.fused_step_ref(*ins, ber, bits, **kw)
-                got = fused_step.fused_step_cuda(*ins, ber, bits, **kw)
-                torch.cuda.synchronize()
-                for name, p, g in zip(("tos", "sae", "keep", "scores"),
-                                      plain, got):
-                    if not torch.equal(p, g):
-                        raise AssertionError(
-                            f"K1 {name} differs at {h}x{w} B={b} "
-                            f"ber={inject}")
-                    fin = torch.isfinite(p.double())
-                    if fin.any():
-                        k1_err = max(k1_err, float(
-                            (p.double() - g.double())[fin].abs().max()))
-                print(f"[K1] {h}x{w} B={b} ber={'on' if inject else 'off'}: "
-                      f"tos, sae, keep, scores equal "
-                      f"(kept {int(plain[2].sum())}/{b * 512})")
+    k1_err, _ = k1_phase(rng, dev)
 
     # --- 3. K2 against its plain version -------------------------------
-    k2_err = 0.0
-    for h, w in ((180, 240), (720, 1280)):
-        for b in (1, 4):
-            tos = k1_inputs(rng, b, h, w, 8, dev, inject=False)[0][0]
-            plain = harris_conv.harris_ref(tos)
-            got = harris_conv.harris_cuda(tos)
-            err = close(got.cpu().numpy(), plain.cpu().numpy())
-            k2_err = max(k2_err, err)
-            print(f"[K2] {h}x{w} B={b}: max |delta| {err:.3g} "
-                  f"(max|R| {float(plain.abs().max()):.3g}, bit-equal "
-                  f"{torch.equal(got, plain)})")
+    k2_err, _ = k2_phase(rng, dev)
 
     # --- 3b. K3 against its plain version -------------------------------
     k3_err, n_cases = 0.0, 0
@@ -926,37 +1091,74 @@ def main() -> int:
     serve_launches, kept_frac = serving_phase(smi, device="cuda")
 
     # --- 7. times at the main path's shapes ----------------------------
+    # K1 as the main path calls it: in place on a state it owns, each call
+    # on a fresh copy of the same state (made before the timed window), HD
+    # B=1 E=512 with and without BER, and the DAVIS240 x16 pool's shape
+    # with BER; per pass from the profiler.  K2 at HD B=1 and DAVIS240 x16.
+    kw = dict(patch=7, th=225, support=2, tw=5000, stcf_enabled=True)
     b, h, w, e = 1, 720, 1280, 512
     ins, ber, bits = k1_inputs(rng, b, h, w, e, dev, inject=True)
     keep = fused_step.fused_step_cuda(*ins, ber, bits, **kw)[2]
-    k1_ms = cuda_ms(lambda: fused_step.fused_step_cuda(*ins, ber, bits, **kw))
+
+    def k1_call(t_ins, *extra, calls=33):
+        states = iter([(t_ins[0].clone(), t_ins[1].clone())
+                       for _ in range(calls)])
+        return lambda: fused_step.fused_step_cuda_(*next(states),
+                                                   *t_ins[2:], *extra, **kw)
+
+    k1_ms = cuda_ms(k1_call(ins, ber, bits))
     k1_plain = cuda_ms(lambda: fused_step.fused_step_ref(*ins, ber, bits,
                                                          **kw), iters=5)
     k1_bms, k1_by, k1_oop = k1_bound(
         b, h, w, e, 7, ins[3].cpu().numpy(), ins[5].cpu().numpy(),
         keep.cpu().numpy(), True)
+    k1_nb_bms, k1_nb_by, _ = k1_bound(
+        b, h, w, e, 7, ins[3].cpu().numpy(), ins[5].cpu().numpy(),
+        keep.cpu().numpy(), False)
     tos = ins[0]
     k2_ms = cuda_ms(lambda: harris_conv.harris_cuda(tos))
     k2_plain = cuda_ms(lambda: harris_conv.harris_ref(tos), iters=10)
-    k2_bms, k2_by = k2_bound(b, h, w)
+    k2_bms, k2_by, k2_bytes_ms, k2_ops_ms = k2_bound(b, h, w)
     key = prng.prng_key(0, device=dev)[None]
     prng_ms = cuda_ms(lambda: ber_mod.write_error_bits(key, (h, w), ber),
                       iters=10)
-    print(f"[time] {smi}: K1 {k1_ms:.4f} ms (plain {k1_plain:.4f} ms, "
-          f"bound {k1_bms:.5f} ms by {k1_by} in place, {k1_oop:.5f} ms "
-          f"by bytes out of place); K2 {k2_ms:.4f} ms (plain "
-          f"{k2_plain:.4f} ms, bound {k2_bms:.5f} ms by {k2_by}); threefry "
-          f"BER draw (plain torch, 1280x720x5) {prng_ms:.4f} ms")
+    print(f"[time] {smi}: K1 in place {k1_ms:.4f} ms by CUDA events "
+          f"(plain {k1_plain:.4f} ms, bound {k1_bms:.5f} ms by {k1_by} in "
+          f"place, {k1_oop:.5f} ms by bytes out of place); K2 "
+          f"{k2_ms:.4f} ms (plain {k2_plain:.4f} ms); threefry BER draw "
+          f"(plain torch, 1280x720x5) {prng_ms:.4f} ms")
 
-    k1_dev = device_ms(lambda: fused_step.fused_step_cuda(*ins, ber, bits,
-                                                          **kw))
+    k1_split = device_split(k1_call(ins, ber, bits), K1_KERNELS)[1]
+    k1_nb_split = device_split(k1_call(ins), K1_KERNELS)[1]
     k1_plain_dev = device_ms(lambda: fused_step.fused_step_ref(
         *ins, ber, bits, **kw), iters=5)
     k2_dev = device_ms(lambda: harris_conv.harris_cuda(tos))
     k2_plain_dev = device_ms(lambda: harris_conv.harris_ref(tos), iters=10)
-    print(f"[time] {smi}: device time per call (profiler): K1 "
-          f"{k1_dev:.4f} ms (plain {k1_plain_dev:.4f} ms), K2 "
-          f"{k2_dev:.4f} ms (plain {k2_plain_dev:.4f} ms)")
+    dav16, dav_ber, dav_bits = k1_inputs(rng, 16, 180, 240, e, dev,
+                                         inject=True)
+    k1_dav_split = device_split(k1_call(dav16, dav_ber, dav_bits),
+                               K1_KERNELS)[1]
+    k1_dev, k1_nb_dev, k1_dav_dev = (sum(d.values()) for d in (
+        k1_split, k1_nb_split, k1_dav_split))
+    k2_dav_dev = device_ms(lambda: harris_conv.harris_cuda(dav16[0]))
+    k2_dav_bms, k2_dav_by, k2_dav_bytes, k2_dav_ops = k2_bound(16, 180, 240)
+
+    def split(d):
+        return ", ".join(f"{k} {v * 1e3:.2f} us" for k, v in d.items())
+
+    print(f"[time] {smi}: device time per call (profiler): K1 in place HD "
+          f"B=1 E=512 with BER {k1_dev * 1e3:.2f} us ({split(k1_split)}; "
+          f"was 61.6 us), without BER {k1_nb_dev * 1e3:.2f} us "
+          f"({split(k1_nb_split)}; bound {k1_nb_bms * 1e3:.3f} us by "
+          f"{k1_nb_by}), plain {k1_plain_dev:.4f} ms; DAVIS240 x16 E=512 "
+          f"with BER {k1_dav_dev * 1e3:.2f} us ({split(k1_dav_split)})")
+    print(f"[time] {smi}: K2 device time per call HD B=1 "
+          f"{k2_dev * 1e3:.2f} us (was 32.0 us; bounds: bytes "
+          f"{k2_bytes_ms * 1e3:.3f} us, float32 operations at the exact "
+          f"rounding contract {k2_ops_ms * 1e3:.3f} us), plain "
+          f"{k2_plain_dev:.4f} ms; DAVIS240 x16 {k2_dav_dev * 1e3:.2f} us "
+          f"(bytes {k2_dav_bytes * 1e3:.3f} us, operations "
+          f"{k2_dav_ops * 1e3:.3f} us)")
     k3 = {}
     for rows, cap in ((4, 64), (16, 64)):
         sc = torch.randn(rows, 512, device=dev)
@@ -1040,8 +1242,7 @@ def main() -> int:
 
     # Profile of a short steady window of the HD step.
     profile_hd(smi, "HD", hd, hd_cfg, {
-        "K1 fused_step.cu": ("stcf_score", "tos_patch", "ber_apply"),
-        "K2 harris.cu": ("harris_kernel",)})
+        "K1 fused_step.cu": K1_KERNELS, "K2 harris.cu": ("harris_kernel",)})
 
     launches = {k: batch_launches[k] + serve_launches[k]
                 for k in serve_launches}
@@ -1052,14 +1253,21 @@ def main() -> int:
          "launches": launches["fused_step"], "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bms,
          "bound_by": k1_by, "library_ms": None, "device_ms": k1_dev,
-         "plain_device_ms": k1_plain_dev},
+         "plain_device_ms": k1_plain_dev, "device_ms_by_pass": k1_split,
+         "no_ber": {"device_ms": k1_nb_dev, "bound_ms": k1_nb_bms,
+                    "bound_by": k1_nb_by, "device_ms_by_pass": k1_nb_split},
+         "davis240_x16": {"device_ms": k1_dav_dev,
+                          "device_ms_by_pass": k1_dav_split}},
         {"name": "harris", "route": "cuda",
          "source": "src/repro_torch/csrc/harris.cu",
          "replaces": "src/repro/kernels/harris_conv.py:101",
          "launches": launches["harris"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain, "bound_ms": k2_bms,
          "bound_by": k2_by, "library_ms": None, "device_ms": k2_dev,
-         "plain_device_ms": k2_plain_dev},
+         "plain_device_ms": k2_plain_dev, "bound_bytes_ms": k2_bytes_ms,
+         "bound_operations_ms": k2_ops_ms,
+         "davis240_x16": {"device_ms": k2_dav_dev, "bound_ms": k2_dav_bms,
+                          "bound_by": k2_dav_by}},
         {"name": "compact", "route": "cuda",
          "source": "src/repro_torch/csrc/compact.cu",
          "replaces": "src/repro/kernels/compact.py:65",

@@ -19,6 +19,14 @@ their own chunks.
 An optional host lane mask (the reference pool's ``_mask_tree``) leaves the
 inactive lanes' every leaf as it was.
 
+``detector_step`` is functional: the caller's state is left as it was.
+``detector_step_`` (PyTorch's trailing-underscore idiom) updates the TOS
+and the SAE of a state its caller owns in place, and the returned state
+shares them; the entry points that fold many chunks (``detector_scan``,
+``StreamingDetector``, the pool's executor) take one working copy of a
+caller's state, or build their own, and step it in place, so K1 moves no
+surface copy per chunk.
+
 ``cfg.backend == "fused"`` runs STCF/TOS/BER/score as the K1 kernel;
 ``"nmc"`` and ``"batched"`` run the reference's unfused order (plain STCF
 and LUT score, the TOS update as K4 or K5 over all lanes in one launch,
@@ -63,6 +71,7 @@ __all__ = [
     "control_init",
     "detector_init",
     "detector_step",
+    "detector_step_",
     "detector_scan",
     "rate_estimate_eps",
     "ring_init",
@@ -291,10 +300,19 @@ def _accumulate(acc: torch.Tensor, nk: torch.Tensor,
 def _keep_inactive(active: np.ndarray, new: DetectorState,
                    old: DetectorState) -> DetectorState:
     """Inactive lanes keep every tensor leaf of ``old``.  The LUT is left
-    out: only active lanes refresh it."""
+    out: only active lanes refresh it.
+
+    A leaf that ``new`` shares with ``old`` (the surfaces after an in-place
+    chunk block) is taken as it is: the block was given the same lane mask
+    and left the inactive lanes' pixels untouched (K1 returns at once for
+    their tiles; ``fused_step_ref_`` copies back only the active lanes), so
+    those lanes already hold the old values and a select would only copy
+    the surface."""
     m = _lanes_on(active, old.surface.device)
 
     def sel(n, o):
+        if n is o:
+            return n
         return torch.where(m.reshape((-1,) + (1,) * (n.dim() - 1)), n, o)
 
     picked = {f: sel(getattr(new, f), getattr(old, f))
@@ -304,13 +322,15 @@ def _keep_inactive(active: np.ndarray, new: DetectorState,
 
 
 def _tos_update_block(tos, sae, lut, xy, ts, valid, ber=None, bits=None, *,
-                      mode, patch, th, support, tw, stcf_enabled):
+                      mask=None, mode, patch, th, support, tw, stcf_enabled):
     """The chunk block of backends ``"nmc"`` / ``"batched"``, in the
     reference's unfused order: ``stcf_step`` and the LUT score per lane
     (plain), the TOS update of the kept events through
     ``ops.tos_update_op`` (K4 / K5, all lanes in one launch), then the BER
     write errors with the step's bits.  Same signature and outputs as
-    ``fused_step.fused_step_ref``."""
+    ``fused_step.fused_step_ref``, but functional in both steps and blind
+    to ``mask``: it returns new surfaces for every lane, and the step
+    selects the inactive lanes' old ones back."""
     saes, keeps, scores = [], [], []
     for b in range(tos.shape[0]):
         sae_b, keep_b = stcf_mod.stcf_step(
@@ -327,12 +347,14 @@ def _tos_update_block(tos, sae, lut, xy, ts, valid, ber=None, bits=None, *,
     return surface, torch.stack(saes), keep, torch.stack(scores)
 
 
-def _chunk_block(backend: str) -> Callable:
-    """The STCF -> TOS -> BER -> score block of ``backend``."""
+def _chunk_block(backend: str, inplace: bool) -> Callable:
+    """The STCF -> TOS -> BER -> score block of ``backend``; with
+    ``inplace`` the fused and plain blocks update the surfaces in place."""
     if backend == "fused":
-        return ops.fused_step_op
+        return ops.fused_step_op_ if inplace else ops.fused_step_op
     if backend == "torch":
-        return fused_step.fused_step_ref
+        return (fused_step.fused_step_ref_ if inplace
+                else fused_step.fused_step_ref)
     if backend in ("nmc", "batched"):
         return functools.partial(_tos_update_block, mode=backend)
     raise ValueError(f"unknown backend {backend!r}")
@@ -342,17 +364,36 @@ def detector_step(cfg, state: DetectorState, chunk: ChunkInput,
                   mask: Optional[np.ndarray] = None
                   ) -> tuple[DetectorState, ChunkOutput]:
     """Fold one chunk into every lane (or the lanes of the host bool
-    ``mask``); returns the new state and outputs.
+    ``mask``); returns the new state and outputs.  ``state`` is left as it
+    was.
 
     The chunk block (STCF -> TOS -> BER -> score) is K1 through
     ``ops.fused_step_op`` on the ``"fused"`` backend, its plain
     composition ``fused_step_ref`` on ``"torch"``, and on ``"nmc"`` /
     ``"batched"`` plain STCF and score around K4 / K5 for all lanes in one
     launch.  All draw the BER bits here, with one key split per chunk iff
-    injecting, as the reference does.  The block applies the bits to
-    inactive lanes too, so a masked step selects their old leaves back;
-    their cursors do not advance and their LUT is not rebuilt.
+    injecting, as the reference does.  The fused and plain blocks take the
+    lane mask and leave the inactive lanes' surfaces alone; ``"nmc"`` /
+    ``"batched"`` apply the bits to them too and the step selects their old
+    surfaces back.  Inactive lanes' other leaves are selected back, their
+    cursors do not advance and their LUT is not rebuilt.
     """
+    return _step(cfg, state, chunk, mask, inplace=False)
+
+
+def detector_step_(cfg, state: DetectorState, chunk: ChunkInput,
+                   mask: Optional[np.ndarray] = None
+                   ) -> tuple[DetectorState, ChunkOutput]:
+    """``detector_step`` that updates ``state.surface`` and ``state.sae``
+    in place on the ``"fused"`` and ``"torch"`` backends (K1 without its
+    two surface copies); the returned state shares them.  The caller must
+    own ``state`` and use only the returned state afterwards."""
+    return _step(cfg, state, chunk, mask, inplace=True)
+
+
+def _step(cfg, state: DetectorState, chunk: ChunkInput,
+          mask: Optional[np.ndarray], *, inplace: bool
+          ) -> tuple[DetectorState, ChunkOutput]:
     b = state.surface.shape[0]
     active = (np.ones(b, np.bool_) if mask is None
               else _lanes(mask, b, np.bool_))
@@ -369,10 +410,12 @@ def detector_step(cfg, state: DetectorState, chunk: ChunkInput,
         key, sub = prng.split(key)
         bits = ber_mod.write_error_bits(sub, tuple(state.surface.shape[1:]),
                                         ber_c)
-    surface, sae, keep, raw = _chunk_block(cfg.backend)(
+    lane_mask = (None if active.all()
+                 else _lanes_on(active, state.surface.device))
+    surface, sae, keep, raw = _chunk_block(cfg.backend, inplace)(
         state.surface, state.sae, state.lut, chunk.xy, chunk.ts,
-        chunk.valid, ber_c, bits, patch=cfg.patch, th=cfg.th,
-        support=cfg.stcf_support, tw=cfg.stcf_tw_us,
+        chunk.valid, ber_c, bits, mask=lane_mask, patch=cfg.patch,
+        th=cfg.th, support=cfg.stcf_support, tw=cfg.stcf_tw_us,
         stcf_enabled=cfg.stcf_enabled,
     )
 
@@ -402,7 +445,9 @@ def detector_step(cfg, state: DetectorState, chunk: ChunkInput,
 def detector_scan(cfg, state: DetectorState,
                   chunks: ChunkInput) -> tuple[DetectorState, ChunkOutput]:
     """Fold a stack of chunks (leaves ``(C, B, ...)``) in order; outputs
-    are stacked ``(C, B, ...)``.  Nothing here waits for the device."""
+    are stacked ``(C, B, ...)``.  Nothing here waits for the device.
+    ``state`` is left as it was: the fold steps one working copy of its
+    surfaces in place."""
     if chunks.xy.shape[0] == 0:
         b, e = chunks.valid.shape[1:]
         empty = torch.zeros((0, b), dtype=torch.int32,
@@ -410,10 +455,12 @@ def detector_scan(cfg, state: DetectorState,
         return state, ChunkOutput(
             scores=torch.zeros((0, b, e), device=chunks.xy.device),
             keep=chunks.valid, n_kept=empty, vdd_idx=empty)
+    state = state._replace(surface=state.surface.clone(),
+                           sae=state.sae.clone())
     outs = []
     for c in range(chunks.xy.shape[0]):
-        state, out = detector_step(cfg, state,
-                                   ChunkInput(*(t[c] for t in chunks)))
+        state, out = detector_step_(cfg, state,
+                                    ChunkInput(*(t[c] for t in chunks)))
         outs.append(out)
     return state, ChunkOutput(*(torch.stack(parts) for parts in zip(*outs)))
 
@@ -513,7 +560,8 @@ def state_to_numpy(state: DetectorState) -> DetectorState:
 
 def lane_state(state: DetectorState, lane: int) -> DetectorState:
     """Lane ``lane`` of ``state`` as a one-lane state (tensor leaves are
-    views of ``state``'s; host leaves are copies)."""
+    views of ``state``'s, so an in-place step of ``state`` shows through
+    them; host leaves are copies)."""
     sl = slice(lane, lane + 1)
     host = {f: _lanes(getattr(state, f), state.surface.shape[0],
                       dt)[sl].copy()

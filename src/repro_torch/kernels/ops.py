@@ -1,10 +1,11 @@
 """The dispatching wrappers the detector step calls.
 
-``fused_step_op`` (K1), ``harris_response_op`` (K2), ``compact_slots_op``
-(K3) and ``tos_update_op`` (K4-K7) take the tensor's device as the choice
-of spelling: a CPU tensor gets the plain PyTorch version, a CUDA tensor
-gets the hand-written kernel — or an error; there is no fallback from a
-CUDA tensor to a plain version.  Surfaces may be one ``(H, W)`` lane or a
+``fused_step_op`` / ``fused_step_op_`` (K1, functional / in place),
+``harris_response_op`` (K2), ``compact_slots_op`` (K3) and
+``tos_update_op`` (K4-K7) take the tensor's device as the choice of
+spelling: a CPU tensor gets the plain PyTorch version, a CUDA tensor gets
+the hand-written kernel — or an error; there is no fallback from a CUDA
+tensor to a plain version.  Surfaces may be one ``(H, W)`` lane or a
 ``(B, H, W)`` batch.
 
 Each wrapper counts its kernel launches in ``LAUNCHES`` (plain calls on the
@@ -20,9 +21,9 @@ import torch
 from repro_torch.core import tos as tos_mod
 from repro_torch.kernels import compact, fused_step, harris_conv, tos_update
 
-__all__ = ["fused_step_op", "harris_response_op", "compact_slots_op",
-           "tos_update_op", "centre_surface", "TOS_MODES", "LAUNCHES",
-           "reset_launch_counts"]
+__all__ = ["fused_step_op", "fused_step_op_", "harris_response_op",
+           "compact_slots_op", "tos_update_op", "centre_surface",
+           "TOS_MODES", "LAUNCHES", "reset_launch_counts"]
 
 # tos_update_op's modes, each with its kernel in ``kernels.tos_update``.
 TOS_MODES = {"nmc": "nmc_stream", "batched": "batched_fused",
@@ -44,33 +45,56 @@ def _device_type(t: torch.Tensor) -> str:
     return t.device.type
 
 
-def fused_step_op(tos, sae, lut, xy, ts, valid, ber=None, bits=None, *,
-                  patch: int = 7, th: int = 225, support: int = 2,
-                  tw: int = 5000, stcf_enabled: bool = True):
-    """One fused chunk step (K1): ``(new_tos, new_sae, keep, raw_scores)``.
-
-    BER write errors are applied iff ``bits`` is given (with ``ber``, the
-    per-lane float32 rate).  ``raw_scores`` is ``where(keep, lut[y, x],
-    -inf)``; the caller applies the ``lut_ready`` gate.
-    """
+def _fused_step(inplace, tos, sae, lut, xy, ts, valid, ber, bits, mask,
+                kw):
     single = tos.dim() == 2
     if single:
         tos, sae, lut, xy, ts, valid = (
             t[None] for t in (tos, sae, lut, xy, ts, valid))
         if bits is not None:
             bits, ber = bits[None], ber.reshape(1)
+        if mask is not None:
+            mask = mask.reshape(1)
     if bits is not None and ber is None:
         raise ValueError("BER bits given without the ber rate")
-    kw = dict(patch=patch, th=th, support=support, tw=tw,
-              stcf_enabled=stcf_enabled)
     if _device_type(tos) == "cpu":
-        out = fused_step.fused_step_ref(tos, sae, lut, xy, ts, valid, ber,
-                                        bits, **kw)
+        fn = (fused_step.fused_step_ref_ if inplace
+              else fused_step.fused_step_ref)
+        out = fn(tos, sae, lut, xy, ts, valid, ber, bits, mask=mask, **kw)
     else:
-        out = fused_step.fused_step_cuda(tos, sae, lut, xy, ts, valid, ber,
-                                         bits, **kw)
+        fn = (fused_step.fused_step_cuda_ if inplace
+              else fused_step.fused_step_cuda)
+        out = fn(tos, sae, lut, xy, ts, valid, ber, bits, mask=mask, **kw)
         LAUNCHES["fused_step"] += 1
     return tuple(t[0] for t in out) if single else out
+
+
+def fused_step_op(tos, sae, lut, xy, ts, valid, ber=None, bits=None, *,
+                  mask=None, patch: int = 7, th: int = 225, support: int = 2,
+                  tw: int = 5000, stcf_enabled: bool = True):
+    """One fused chunk step (K1): ``(new_tos, new_sae, keep, raw_scores)``;
+    the inputs are left as they were.
+
+    BER write errors are applied iff ``bits`` is given (with ``ber``, the
+    per-lane float32 rate).  ``raw_scores`` is ``where(keep, lut[y, x],
+    -inf)``; the caller applies the ``lut_ready`` gate.  Lanes where the
+    bool ``mask`` is false keep their surfaces.
+    """
+    return _fused_step(False, tos, sae, lut, xy, ts, valid, ber, bits, mask,
+                       dict(patch=patch, th=th, support=support, tw=tw,
+                            stcf_enabled=stcf_enabled))
+
+
+def fused_step_op_(tos, sae, lut, xy, ts, valid, ber=None, bits=None, *,
+                   mask=None, patch: int = 7, th: int = 225,
+                   support: int = 2, tw: int = 5000,
+                   stcf_enabled: bool = True):
+    """``fused_step_op`` updating ``tos`` and ``sae`` in place (the caller
+    owns them); returns ``(tos, sae, keep, raw_scores)`` with the tensors it
+    was given."""
+    return _fused_step(True, tos, sae, lut, xy, ts, valid, ber, bits, mask,
+                       dict(patch=patch, th=th, support=support, tw=tw,
+                            stcf_enabled=stcf_enabled))
 
 
 def harris_response_op(tos: torch.Tensor, *, sobel_size: int = 5,

@@ -10,13 +10,15 @@ the pump order are policy (``serve.scheduler``), wired in by the
 
 **Executors.**  A bucket's executor is a host loop, not a compiled
 program: for each ready round, in round order, it runs the lane-batched
-``detector_step`` over all lanes (K1 in one launch, K2 over the lanes
-whose LUT refresh is due), keeps the inactive lanes' state (the masked
-select), and pushes the round into the bucket's live device ring — with
-``readout="compact"`` through K3.  Rounds are gathered ``ring_rounds`` at
-a time into a block and uploaded as the reference uploads them: a block
-with one ready round as ``(lanes, chunk)`` slabs, any other as padded
-``(ring_rounds, lanes, chunk)`` slabs whose padded rounds the host skips.
+``detector_step_`` over all lanes, in place on the pool's own state (K1
+in one launch, which leaves the inactive lanes' surfaces untouched; K2
+over the lanes whose LUT refresh is due), keeps the inactive lanes' other
+leaves (the masked select), and pushes the round into the bucket's live
+device ring — with ``readout="compact"`` through K3.  Rounds are gathered
+``ring_rounds`` at a time into a block and uploaded as the reference
+uploads them: a block with one ready round as ``(lanes, chunk)`` slabs,
+any other as padded ``(ring_rounds, lanes, chunk)`` slabs whose padded
+rounds the host skips.
 Nothing is compiled, so ``compile_cache_sizes`` counts, per bucket and
 block shape, the distinct shape signatures of the device slabs the executor
 was handed (what a compiled or captured executor would need one build per);
@@ -971,7 +973,7 @@ class PoolRuntime:
         for i in range(n):
             xy, ts, valid, mask, n_valid = blk.round(i)
             chunk = state_mod.ChunkInput(xy, ts, valid, *self._riders)
-            self._states, outs = state_mod.detector_step(
+            self._states, outs = state_mod.detector_step_(
                 tcfg, self._states, chunk, mask=blk.masks[i])
             self._push(bucket, outs, mask, n_valid)
         self._executed[bucket]["single" if blk.single else "block"].add(

@@ -2,12 +2,13 @@
 (``repro.serve.streaming``).
 
 ``StreamingDetector`` owns a one-lane ``DetectorState`` on its device
-across arrivals, accepts event slabs of any length (a host buffer re-chunks
-them to the detector's fixed chunk size), and returns per-event corner
-scores as chunks complete.  ``flush()`` folds the partial tail,
-``snapshot()`` / ``restore()`` checkpoint the whole session (state, buffer
-and accounting), and ``rebucket()`` hops a live session to a new chunk
-size through the same path.
+across arrivals (and steps its surfaces in place), accepts event slabs of
+any length (a host buffer re-chunks them to the detector's fixed chunk
+size), and returns per-event corner scores as chunks complete.
+``flush()`` folds the partial tail, ``snapshot()`` / ``restore()``
+checkpoint the whole session (state, buffer and accounting), and
+``rebucket()`` hops a live session to a new chunk size through the same
+path.
 
 Fed the same stream in any slab partition, a session produces the same
 scores, final state and float64 energy books as one ``run_pipeline`` call
@@ -222,8 +223,8 @@ class StreamingDetector:
             ber=self._riders[0], energy_coef=self._riders[1],
             latency_coef=self._riders[2],
         )
-        self._state, out = state_mod.detector_step(self._tcfg, self._state,
-                                                   chunk)
+        self._state, out = state_mod.detector_step_(self._tcfg, self._state,
+                                                    chunk)
         return out
 
     def _account(self, outs, n_valids) -> tuple[np.ndarray, np.ndarray]:
@@ -338,7 +339,10 @@ class StreamingDetector:
 
     @property
     def state(self) -> state_mod.DetectorState:
-        return self._state
+        """The session's state, with copies of its surfaces: the session
+        owns its own and steps them in place."""
+        return self._state._replace(surface=self._state.surface.clone(),
+                                    sae=self._state.sae.clone())
 
     @property
     def base_ts(self) -> Optional[int]:

@@ -69,6 +69,108 @@ def test_fused_kernel_matches_plain(cuda, patch, inject, stcf_enabled):
         assert torch.equal(p, g), name
 
 
+# K1 in place (``fused_step_cuda_``) and under a lane mask: (B, H, W, E,
+# patch, layout, stcf_enabled, masked), each with BER off, on, and 0 in
+# every other lane.
+_K1_CASES = [
+    (1, 720, 1280, 512, 7, "clusters", True, False),
+    (4, 180, 240, 512, 7, "clusters", True, True),
+    (2, 37, 101, 300, 7, "spread", True, False),
+    (1, 720, 330, 512, 9, "clusters", True, True),
+    (1, 180, 240, 512, 31, "clusters", True, False),
+    (1, 720, 1280, 8192, 7, "one_tile", True, False),
+    (2, 180, 240, 512, 7, "clusters", False, True),
+    (16, 180, 240, 512, 7, "clusters", True, True),
+]
+
+
+def _k1_case(rng, b, h, w, e, layout):
+    tos = np.where(rng.random((b, h, w)) < 0.3,
+                   rng.integers(225, 256, (b, h, w)), 0).astype(np.uint8)
+    sae = np.full((b, h, w), NEVER, np.int32)
+    seen = rng.random((b, h, w)) < 0.4
+    sae[seen] = rng.integers(0, 30_000, seen.sum())
+    lut = rng.standard_normal((b, h, w)).astype(np.float32)
+    if layout == "spread":
+        xy = np.stack([rng.integers(0, w, (b, e)),
+                       rng.integers(0, h, (b, e))], -1)
+    elif layout == "clusters":
+        c = rng.integers(0, (w, h), (b, 8, 2))
+        pick = c[np.arange(b)[:, None], rng.integers(0, 8, (b, e))]
+        xy = np.clip(pick + rng.integers(-6, 7, (b, e, 2)), 0,
+                     (w - 1, h - 1))
+    else:   # every event in a 12 x 12 square inside one 64x64 tile
+        xy = np.array([90, 26]) + rng.integers(0, 12, (b, e, 2))
+    ts = np.sort(rng.integers(25_000, 40_000, (b, e)), axis=1)
+    valid = rng.random((b, e)) < 0.9
+    return [torch.from_numpy(a) for a in
+            (tos, sae, lut, xy.astype(np.int32), ts.astype(np.int32), valid)]
+
+
+@pytest.mark.parametrize("ber_mode", ["off", "on", "some 0"])
+@pytest.mark.parametrize("case", _K1_CASES,
+                         ids=lambda c: "B{}-{}x{}-E{}-p{}-{}-{}{}".format(
+                             *c[:6], "stcf" if c[6] else "nostcf",
+                             "-masked" if c[7] else ""))
+def test_fused_kernel_in_place_and_masked(cuda, case, ber_mode):
+    """K1 in place and functional, with and without a lane mask, against
+    ``fused_step_ref`` bit for bit; masked lanes come out byte-identical
+    and the functional call leaves its inputs alone."""
+    b, h, w, e, patch, layout, stcf, masked = case
+    rng = np.random.default_rng(b * 1000 + e + patch)
+    ins = [t.to(cuda) for t in _k1_case(rng, b, h, w, e, layout)]
+    rate = [0.025 if ber_mode == "on" or i % 2 == 0 else 0.0
+            for i in range(b)]
+    ber = torch.tensor(rate, device=cuda)
+    bits = None if ber_mode == "off" else t_ber.write_error_bits(
+        torch.stack([prng.prng_key(s, device=cuda) for s in range(b)]),
+        (h, w), ber)
+    mask = (torch.arange(b, device=cuda) % 4 != 1) if masked else None
+    kw = dict(patch=patch, th=225, support=2, tw=5000, stcf_enabled=stcf,
+              mask=mask)
+    plain = fused_step.fused_step_ref(*ins, ber, bits, **kw)
+    before = [t.clone() for t in ins[:2]]
+    got = fused_step.fused_step_cuda(*ins, ber, bits, **kw)
+    tos, sae = ins[0].clone(), ins[1].clone()
+    got_ = fused_step.fused_step_cuda_(tos, sae, *ins[2:], ber, bits, **kw)
+    torch.cuda.synchronize()
+    assert got_[0] is tos and got_[1] is sae
+    for t, t0 in zip(ins[:2], before):
+        assert torch.equal(t, t0)
+    for out in (got, got_):
+        for name, p, g in zip(("tos", "sae", "keep", "scores"), plain, out):
+            assert torch.equal(p, g), name
+        if masked:
+            for g, t0 in zip(out[:2], before):
+                assert torch.equal(g[~mask], t0[~mask])
+
+
+@pytest.mark.parametrize("b", [1, 4])
+@pytest.mark.parametrize("hw", [(37, 101), (180, 240), (720, 1280)])
+@pytest.mark.parametrize("window", [1, 3, 5, 7])
+@pytest.mark.parametrize("sobel", [3, 5, 7])
+def test_harris_kernel_bit_equal(cuda, sobel, window, hw, b):
+    """K2 against ``harris_ref`` at every Sobel and window size it is
+    built for, bit for bit (the float32 words compared as int32)."""
+    rng = np.random.default_rng(sobel * 10 + window + hw[0] + b)
+    tos = rng.integers(0, 256, (b, *hw))
+    tos = torch.from_numpy(np.where(tos >= 225, tos, 0).astype(np.uint8))
+    kw = dict(sobel_size=sobel, window_size=window)
+    plain = harris_conv.harris_ref(tos.to(cuda), **kw)
+    got = harris_conv.harris_cuda(tos.to(cuda), **kw)
+    assert torch.equal(got.view(torch.int32), plain.view(torch.int32))
+
+
+def test_harris_sobel_1_refused(cuda):
+    """A Sobel size of 1 has no odd operator (``sobel_kernels(1)`` is
+    1 x 2): the plain version fails on its shapes and K2 refuses it."""
+    tos = torch.zeros((1, 37, 101), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError):
+        harris_conv.harris_cuda(tos, sobel_size=1)
+    with pytest.raises(RuntimeError):
+        harris_conv.harris_ref(tos, sobel_size=1)
+
+
 @pytest.mark.parametrize("hw", [(180, 240), (720, 1280), (37, 101)])
 def test_harris_kernel_matches_plain(cuda, hw):
     rng = np.random.default_rng(hw[0])

@@ -118,3 +118,59 @@ def test_cuda_wrapper_rejects_cpu_tensors():
     with pytest.raises(ValueError):
         fused_step.fused_step_cuda(*lane, patch=7, th=225, support=2,
                                    tw=TW, stcf_enabled=True)
+
+
+def _stacked_case(patch, inject, stcf_enabled, b=2):
+    """The inputs of ``test_fused_plain_matches_reference``, as tensors."""
+    rng = np.random.default_rng(patch * 4 + 2 * inject + stcf_enabled)
+    lanes = [_lane(rng, 40, 56, 192) for _ in range(b)]
+    stacked = [torch.from_numpy(np.stack(a)) for a in zip(*lanes)]
+    bers = torch.tensor([0.025, 0.0, 0.002][:b])
+    bits = None
+    if inject:
+        keys = torch.stack([torch.tensor([0, 3 + i]) for i in range(b)])
+        bits = t_ber.write_error_bits(keys, (40, 56), bers)
+    return stacked, bers, bits
+
+
+@pytest.mark.parametrize("patch", [5, 7])
+@pytest.mark.parametrize("inject", [False, True])
+@pytest.mark.parametrize("stcf_enabled", [True, False])
+def test_fused_plain_inplace_matches_functional(patch, inject, stcf_enabled):
+    """``fused_step_ref_`` (and ``ops.fused_step_op_`` on the CPU) update
+    the surfaces they are given to exactly what the functional spelling
+    returns, and return those very tensors."""
+    ins, bers, bits = _stacked_case(patch, inject, stcf_enabled)
+    kw = dict(patch=patch, th=225, support=SUPPORT, tw=TW,
+              stcf_enabled=stcf_enabled)
+    want = fused_step.fused_step_ref(*ins, bers, bits, **kw)
+    for fn in (fused_step.fused_step_ref_, t_ops.fused_step_op_):
+        tos, sae = ins[0].clone(), ins[1].clone()
+        got = fn(tos, sae, *ins[2:], bers, bits, **kw)
+        assert got[0] is tos and got[1] is sae
+        for name, g, w in zip(("tos", "sae", "keep", "scores"), got, want):
+            assert torch.equal(g, w), name
+    if stcf_enabled:
+        assert not torch.equal(want[1], ins[1])
+    assert not any(t_ops.LAUNCHES.values()), t_ops.LAUNCHES
+
+
+@pytest.mark.parametrize("inject", [False, True])
+def test_fused_plain_mask_leaves_inactive_lanes(inject):
+    """A lane mask: inactive lanes keep their surfaces byte for byte (in
+    place and functional), active lanes equal the unmasked step, and keep
+    and scores are computed for every lane."""
+    ins, bers, bits = _stacked_case(7, inject, True, b=3)
+    kw = dict(patch=7, th=225, support=SUPPORT, tw=TW, stcf_enabled=True)
+    mask = torch.tensor([True, False, True])
+    full = fused_step.fused_step_ref(*ins, bers, bits, **kw)
+    tos, sae = ins[0].clone(), ins[1].clone()
+    for got in (fused_step.fused_step_ref_(tos, sae, *ins[2:], bers, bits,
+                                           mask=mask, **kw),
+                t_ops.fused_step_op(*ins, bers, bits, mask=mask, **kw)):
+        for i, active in enumerate(mask.tolist()):
+            for name, g, w, old in zip(("tos", "sae"), got, full, ins):
+                want = w[i] if active else old[i]
+                assert torch.equal(g[i], want), (name, i)
+        assert torch.equal(got[2], full[2]) and torch.equal(got[3], full[3])
+    assert not torch.equal(full[0][1], ins[0][1])   # the mask mattered

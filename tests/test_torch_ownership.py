@@ -1,0 +1,214 @@
+"""Who owns a state when K1 steps surfaces in place (on the CPU, where the
+plain ``fused_step_ref_`` stands in for the kernel and runs the same
+ownership logic).
+
+Every entry point that folds many chunks steps its own working copy of the
+TOS and the SAE in place; a caller's state is never mutated.  Each test
+takes a clone of what the caller holds before the call and checks it bit
+for bit after.  A masked pool round leaves the inactive lanes' surfaces as
+they were.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from _torch_pool_harness import one_torch_thread  # noqa: E402,F401
+from repro_torch.core import pipeline as tp  # noqa: E402
+from repro_torch.core import state as ts_  # noqa: E402
+from repro_torch.events import synthetic  # noqa: E402
+from repro_torch.serve import DetectorPool, StreamingDetector  # noqa: E402
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
+H, W, CHUNK = 64, 96, 96
+MODES = {
+    "ber_0.6V": dict(inject_ber=True, vdd=0.6),
+    "dvfs_online": dict(dvfs=True, dvfs_online=True, inject_ber=True),
+}
+
+
+def _cfg(mode="ber_0.6V", backend="fused", **kw):
+    return tp.PipelineConfig(height=H, width=W, chunk=CHUNK,
+                             lut_every_chunks=2, backend=backend,
+                             device="cpu", **MODES[mode], **kw)
+
+
+def _stream(seed=0, n=6 * CHUNK):
+    st = synthetic.shapes_stream(height=H, width=W, duration_us=40_000,
+                                 n_shapes=2, seed=seed)
+    return st.xy[:n], st.ts[:n]
+
+
+def _tensors(state):
+    """Every tensor leaf of a state, by name."""
+    out = {f: getattr(state, f) for f in ts_._TENSOR_FIELDS}
+    out.update({f"rate.{i}": r for i, r in enumerate(state.rate)})
+    return out
+
+
+def _clone(state):
+    return {k: t.clone() for k, t in _tensors(state).items()}
+
+
+def _assert_unchanged(state, before):
+    for k, t in _tensors(state).items():
+        assert torch.equal(t, before[k]), k
+
+
+def _chunks(cfg, seed=0, n_chunks=4, lanes=1):
+    """``n_chunks`` stacked chunks for ``lanes`` lanes."""
+    rng = np.random.default_rng(seed)
+    xy = rng.integers(0, (W, H), (n_chunks, lanes, CHUNK, 2)).astype(
+        np.int32)
+    ts = np.sort(rng.integers(0, 20_000, (n_chunks, lanes, CHUNK)),
+                 axis=-1).astype(np.int32)
+    valid = rng.random((n_chunks, lanes, CHUNK)) < 0.9
+    ber, e, lat = ts_.chunk_input_riders(n_chunks, np.full(n_chunks, 0.6),
+                                         cfg)
+    rep = lambda a: torch.from_numpy(np.repeat(a[:, None], lanes, 1))
+    return ts_.ChunkInput(torch.from_numpy(xy), torch.from_numpy(ts),
+                          torch.from_numpy(valid), rep(ber), rep(e),
+                          rep(lat))
+
+
+def _busy_state(cfg, lanes=1):
+    """A state some chunks into a stream, so surfaces are not blank."""
+    state = ts_.detector_init(cfg, seed=list(range(lanes)))
+    state, _ = ts_.detector_scan(cfg, state, _chunks(cfg, 7, 3, lanes))
+    return state
+
+
+@pytest.mark.parametrize("backend", ["fused", "torch"])
+def test_detector_scan_leaves_caller_state(backend):
+    """``detector_scan`` steps a working copy: the caller's state is bit
+    for bit as it was, and the fold equals one of functional steps."""
+    cfg = _cfg(backend=backend)
+    state = _busy_state(cfg, lanes=2)
+    before = _clone(state)
+    chunks = _chunks(cfg, 1, 4, lanes=2)
+    fin, outs = ts_.detector_scan(cfg, state, chunks)
+    _assert_unchanged(state, before)
+    assert fin.surface is not state.surface and fin.sae is not state.sae
+
+    ref = state
+    for c in range(chunks.xy.shape[0]):
+        ref, out = ts_.detector_step(cfg, ref,
+                                     ts_.ChunkInput(*(t[c] for t in chunks)))
+        assert torch.equal(out.keep, outs.keep[c])
+        assert torch.equal(out.scores, outs.scores[c])
+    for k, t in _tensors(fin).items():
+        assert torch.equal(t, _tensors(ref)[k]), k
+    _assert_unchanged(state, before)
+
+
+@pytest.mark.parametrize("backend", ["fused", "torch", "nmc"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_detector_step_is_functional(backend, masked):
+    """``detector_step`` called directly leaves its state alone, masked or
+    not; ``detector_step_`` on a copy gives the same new state, sharing
+    the copy's surfaces on the fused and plain backends."""
+    cfg = _cfg(backend=backend)
+    state = _busy_state(cfg, lanes=3)
+    before = _clone(state)
+    chunk = ts_.ChunkInput(*(t[0] for t in _chunks(cfg, 2, 1, lanes=3)))
+    mask = np.array([True, False, True]) if masked else None
+    new, out = ts_.detector_step(cfg, state, chunk, mask=mask)
+    _assert_unchanged(state, before)
+
+    own = state._replace(surface=state.surface.clone(),
+                         sae=state.sae.clone())
+    new_, out_ = ts_.detector_step_(cfg, own, chunk, mask=mask)
+    if backend != "nmc":
+        assert new_.surface is own.surface and new_.sae is own.sae
+    for k, t in _tensors(new).items():
+        assert torch.equal(t, _tensors(new_)[k]), k
+    assert torch.equal(out.keep, out_.keep)
+    if masked:
+        for f in ("surface", "sae"):
+            assert torch.equal(getattr(new, f)[1], before[f][1]), f
+    _assert_unchanged(state, before)
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_run_pipeline_leaves_inputs_and_repeats(mode):
+    """``run_pipeline`` / ``run_pipeline_batched`` leave the caller's
+    arrays as they were, and a second call gives the same result (no
+    surface survives from one call into the next)."""
+    cfg = _cfg(mode)
+    xy, ts = _stream(0)
+    xy2, ts2 = _stream(1)
+    bxy, bts = np.stack([xy, xy2]), np.stack([ts, ts2])
+    keep = [a.copy() for a in (xy, ts, bxy, bts)]
+    one = tp.run_pipeline(xy, ts, cfg)
+    batch = tp.run_pipeline_batched(bxy, bts, cfg, seeds=[3, 4])
+    for a, b in zip((xy, ts, bxy, bts), keep):
+        np.testing.assert_array_equal(a, b)
+    again = tp.run_pipeline(xy, ts, cfg)
+    again_b = tp.run_pipeline_batched(bxy, bts, cfg, seeds=[3, 4])
+    for got, want in ((again, one), *zip(again_b, batch)):
+        for f in ("scores", "kept", "tos", "lut"):
+            np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+    assert not np.array_equal(batch[0].tos, batch[1].tos)
+
+
+def test_streaming_feed_and_snapshot_leave_callers_state():
+    """A session steps its own surfaces in place: a state read from
+    ``.state``, a snapshot and the snapshot a session was restored from
+    all stay as they were while the session goes on feeding."""
+    cfg = _cfg("dvfs_online")
+    xy, ts = _stream(2)
+    det = StreamingDetector(cfg, seed=5)
+    det.feed(xy[:2 * CHUNK], ts[:2 * CHUNK])
+    held = det.state
+    before = _clone(held)
+    snap = det.snapshot()
+    snap_before = ts_.state_to_numpy(ts_.state_from_numpy(snap["state"],
+                                                          device="cpu"))
+    det.feed(xy[2 * CHUNK:4 * CHUNK], ts[2 * CHUNK:4 * CHUNK])
+    _assert_unchanged(held, before)
+    assert not torch.equal(det.state.surface, before["surface"])
+
+    again = StreamingDetector.restore(snap)
+    again.feed(xy[2 * CHUNK:4 * CHUNK], ts[2 * CHUNK:4 * CHUNK])
+    for f in ("surface", "sae", "key"):
+        np.testing.assert_array_equal(getattr(snap["state"], f),
+                                      getattr(snap_before, f), err_msg=f)
+        assert torch.equal(getattr(again.state, f), getattr(det.state, f))
+
+
+def test_pool_masked_rounds_leave_inactive_lanes():
+    """A ``DetectorPool`` round folds only the lanes with a full chunk:
+    across rounds with churn (a lane leaves, a fresh one joins its slot),
+    every inactive lane's TOS and SAE stay byte-identical."""
+    cfg = _cfg("ber_0.6V")
+    streams = [_stream(s) for s in range(3)]
+    pool = DetectorPool(cfg, 4, ring_rounds=2)
+    try:
+        lanes = [pool.connect(seed=s) for s in range(3)]
+        plans = [(0, 1), (1, 2), (0, 2), (2,), (0, 1, 2)]
+        cursor = [0, 0, 0]
+        for step, fed in enumerate(plans):
+            if step == 3:       # churn: lane 1 leaves, a fresh one joins
+                pool.disconnect(lanes[1])
+                lanes[1] = pool.connect(seed=9)
+                cursor[1] = 0
+            for i in fed:
+                xy, ts = streams[i]
+                c = cursor[i]
+                pool.feed(lanes[i], xy[c:c + CHUNK], ts[c:c + CHUNK])
+                cursor[i] = c + CHUNK
+            idle = [lanes[i] for i in range(3) if i not in fed]
+            s = pool._states
+            before = {ln: (s.surface[ln].clone(), s.sae[ln].clone())
+                      for ln in idle}
+            assert pool.pump() >= 1
+            for ln, (tos, sae) in before.items():
+                assert torch.equal(pool._states.surface[ln], tos), (step, ln)
+                assert torch.equal(pool._states.sae[ln], sae), (step, ln)
+            for i in fed:
+                pool.poll(lanes[i])
+    finally:
+        pool.close()
