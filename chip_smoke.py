@@ -24,11 +24,11 @@ checkout of this repository.  Phases, each printing its own lines:
      K4-K7 (the TOS update on its own: NMC replay, closed form, and both
      binned per 128x128 tile) against their plain versions at both sizes,
      512 events, 1 and 4 lanes, the binned ones with ``cap = E`` and with
-     a ``cap`` that truncates, then K5/K7 on the edge cases of their 64x64
+     a ``cap`` that truncates, then K4-K7 on the edge cases of their 64x64
      tiles (``TOS_EDGE_CASES``: E of 1, 300 and 8192, patches 1, 3 and
      31, 8192 events in one 128-tile, ragged sizes, 4 lanes, a background
-     below ``th``; K7 with ``cap`` E, 1 and half the busiest tile's hits):
-     every output equal;
+     below ``th``; K6 and K7 with ``cap`` E, 1 and half the busiest tile's
+     hits): every output equal;
   4. end to end on the DAVIS240 sensor (180x240): ``run_pipeline`` with
      BER at a fixed 0.6 V and with online DVFS, on the card and on the CPU
      (plain versions), held to the parity bounds; PR-AUC printed;
@@ -56,8 +56,9 @@ checkout of this repository.  Phases, each printing its own lines:
      fresh copies of one state, per pass, at 1280x720 with and without BER
      and at the DAVIS240 x16 pool's shape; K2 at 1280x720 and DAVIS240 x16
      beside its byte bound and its operation floor at the exact rounding
-     contract; for K5 and K7
-     also one ``torch.bmm`` of the fp16 one-hot bands, the counts part
+     contract; K4-K7 at 1280x720 and DAVIS240, B=1, and K4/K6 also at
+     the DAVIS240 x16 pool's shape, each beside its byte bound; for K5 and
+     K7 also one ``torch.bmm`` of the fp16 one-hot bands, the counts part
      only, as the library yardstick, at 1280x720 and at DAVIS240; a
      profile of the HD step (K1 per pass, K2, device-to-device copies per
      chunk), and the JSON summary line.
@@ -120,22 +121,30 @@ def device_ms(fn, iters=30, warmup=3) -> float:
 K1_KERNELS = ("stcf_score_kernel", "fused_tile_kernel")
 
 
-def device_split(fn, names, iters=30, warmup=3):
+def device_split(fn, names, iters=30, warmup=3, windows=3):
     """``device_ms`` of ``fn`` and the device time per call of each kernel
-    whose name holds one of ``names`` (ms)."""
+    whose name holds one of ``names`` (ms).  The profiler now and then
+    returns a window with no device record at all; such a window is
+    profiled again, up to ``windows`` times in all."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    rows = [r for r in prof.key_averages()
-            if str(r.device_type).endswith("CUDA")]
-    total = sum(r.self_device_time_total for r in rows) / 1e3 / iters
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = [r for r in prof.key_averages()
+                if str(r.device_type).endswith("CUDA")]
+        total = sum(r.self_device_time_total for r in rows) / 1e3 / iters
+        if total > 0:
+            break
+    else:
+        raise RuntimeError(f"the profiler recorded no device time in "
+                           f"{windows} windows")
     per = {n: sum(r.self_device_time_total for r in rows if n in r.key)
            / 1e3 / iters for n in names}
     return total, per
@@ -371,13 +380,15 @@ def tos_edge_inputs(rng, b, h, w, e, layout, below_th, dev, th=225):
 
 
 def tos_edge_phase(rng, dev, cases=TOS_EDGE_CASES):
-    """Phase 3c, second part: K5 and K7 (cap E, 1 and half the busiest
-    128-tile's hits) against their plain versions on ``cases``; returns
-    (max |delta|, cases checked).  Small cases with the plain versions
-    standing in for the kernels rehearse it on the CPU."""
+    """Phase 3c, second part: K5 and K7, K4 and K6 (the binned ones with
+    cap E, 1 and half the busiest 128-tile's hits) against their plain
+    versions on ``cases``; returns (K5/K7 max |delta|, K4/K6 max |delta|,
+    cases checked).  Small cases with the plain versions standing in for
+    the kernels rehearse it on the CPU."""
     import torch
     from repro_torch.kernels import ops, tos_update
-    err, n = 0, 0
+    err = {"batched": 0, "nmc": 0}
+    n = 0
     for what, b, h, w, e, patch, layout, below in cases:
         tos, xy, valid = tos_edge_inputs(rng, b, h, w, e, layout, below, dev)
         kw = dict(patch=patch, th=225)
@@ -385,28 +396,30 @@ def tos_edge_phase(rng, dev, cases=TOS_EDGE_CASES):
         bins, _ = tos_update.bin_events_to_tiles(
             xy, valid, grid_hw=tos_update._grid(h, w), patch=patch, cap=e)
         busiest = int(bins[..., 2].sum(-1).max())
-        checks = [("batched_fused", {}), ("batched_fused_binned", {}),
-                  ("batched_fused_binned", dict(cap=1)),
-                  ("batched_fused_binned", dict(cap=max(1, busiest // 2)))]
-        for name, ckw in checks:
-            plain = getattr(tos_update, f"{name}_ref")(
-                tos, xy, valid, centre, **kw, **ckw)
-            got = getattr(tos_update, f"{name}_cuda")(
-                tos, xy, valid, centre, **kw, **ckw)
-            sync(dev)
-            if not torch.equal(plain, got):
-                raise AssertionError(f"{name} {ckw} differs: {what}")
-            err = max(err, int((plain.int() - got.int()).abs().max()))
-            n += 1
+        caps = ({}, {}, dict(cap=1), dict(cap=max(1, busiest // 2)))
+        for kind, name, extra in (("batched", "batched_fused", (centre,)),
+                                  ("nmc", "nmc_stream", ())):
+            for binned, ckw in zip((False, True, True, True), caps):
+                fn = f"{name}_binned" if binned else name
+                plain = getattr(tos_update, f"{fn}_ref")(
+                    tos, xy, valid, *extra, **kw, **ckw)
+                got = getattr(tos_update, f"{fn}_cuda")(
+                    tos, xy, valid, *extra, **kw, **ckw)
+                sync(dev)
+                if not torch.equal(plain, got):
+                    raise AssertionError(f"{fn} {ckw} differs: {what}")
+                err[kind] = max(err[kind],
+                                int((plain.int() - got.int()).abs().max()))
+                n += 1
         row_band, col_band = one_hot_bands(xy, valid, h, w, patch,
                                            torch.float32)
         top = int(torch.bmm(row_band, col_band).max())
-        print(f"[K5/K7] {what}: B={b} {h}x{w} E={e} patch {patch}: batched "
-              f"and batched_binned (cap E, 1, {max(1, busiest // 2)}) "
+        print(f"[K4-K7] {what}: B={b} {h}x{w} E={e} patch {patch}: batched, "
+              f"nmc and both binned (cap E, 1, {max(1, busiest // 2)}) "
               f"equal to plain; busiest 128-tile {busiest} hits, largest "
               f"cover count {top}")
-    print(f"[K5/K7] {n} edge cases equal")
-    return float(err), n
+    print(f"[K4-K7] {n} edge cases equal")
+    return float(err["batched"]), float(err["nmc"]), n
 
 
 # K1 cases for csrc/fused_step.cu's two passes: (what, B, H, W, E, patch,
@@ -992,7 +1005,7 @@ def main() -> int:
 
     # --- 3c. K4-K7 against their plain versions -------------------------
     k47_err = tos_kernel_phase(np.random.default_rng(13), dev)
-    k57_err, _ = tos_edge_phase(np.random.default_rng(14), dev)
+    k57_err, k46_err, _ = tos_edge_phase(np.random.default_rng(14), dev)
 
     # --- 4/5. the main path: run_pipeline on the card ------------------
     davis = synthetic.shapes_stream(duration_us=200_000, seed=0)
@@ -1182,32 +1195,39 @@ def main() -> int:
               f"{t['bound_ms']:.7f} ms by {t['bound_by']}")
 
     # K4-K7 at the main path's shapes: HD, B=1, E=512, K1's kept events;
-    # K5/K7 also at DAVIS240, where the 64x64 tiles are dense.
+    # also at DAVIS240 B=1, where the 64x64 tiles are few and dense, and
+    # K4/K6 at the DAVIS240 x16 pool's shape.
     from repro_torch.kernels import tos_update
     tkw = dict(patch=7, th=225)
     dav = k1_inputs(rng, 1, 180, 240, e, dev, inject=True)
     dav_keep = fused_step.fused_step_cuda(*dav[0], dav[1], dav[2], **kw)[2]
+    dav16_keep = fused_step.fused_step_cuda(*dav16, dav_ber, dav_bits,
+                                            **kw)[2]
+    # us, device, HD: the per-pixel replay that the tile pass replaced
+    was = {"nmc": 9.5, "nmc_binned": 9.0}
     tos_t = {}
-    for (th_, tw_), t_ins, t_keep in (((h, w), ins, keep),
-                                      ((180, 240), dav[0], dav_keep)):
-        hd_shape = (th_, tw_) == (h, w)
+    for shape, lanes_, (th_, tw_), t_ins, t_keep in (
+            ("hd", 1, (h, w), ins, keep),
+            ("davis240", 1, (180, 240), dav[0], dav_keep),
+            ("davis240_x16", 16, (180, 240), dav16, dav16_keep)):
         tos_in, xy_in = t_ins[0], t_ins[3]
         centre = ops.centre_surface((th_, tw_), xy_in, t_keep, **tkw)
-        row_band, col_band = one_hot_bands(xy_in, t_keep, th_, tw_, 7,
-                                           torch.half)
-        k_total = torch.bmm(row_band, col_band)
-        bg = tos_update.batched_fused_cuda(
-            tos_in, xy_in, t_keep, torch.full_like(centre, -1), **tkw)
-        want_bg = tos_in.int() - k_total.int()
-        if not torch.equal(bg.int(), torch.where(want_bg >= 225, want_bg,
-                                                 0)):
-            raise AssertionError("the bmm yardstick's counts differ from "
-                                 "K5's")
-        bmm_ms = cuda_ms(lambda: torch.bmm(row_band, col_band))
-        bmm_dev = device_ms(lambda: torch.bmm(row_band, col_band))
+        if lanes_ == 1:
+            row_band, col_band = one_hot_bands(xy_in, t_keep, th_, tw_, 7,
+                                               torch.half)
+            k_total = torch.bmm(row_band, col_band)
+            bg = tos_update.batched_fused_cuda(
+                tos_in, xy_in, t_keep, torch.full_like(centre, -1), **tkw)
+            want_bg = tos_in.int() - k_total.int()
+            if not torch.equal(bg.int(), torch.where(want_bg >= 225,
+                                                     want_bg, 0)):
+                raise AssertionError("the bmm yardstick's counts differ "
+                                     "from K5's")
+            bmm_ms = cuda_ms(lambda: torch.bmm(row_band, col_band))
+            bmm_dev = device_ms(lambda: torch.bmm(row_band, col_band))
         for mode, name in ops.TOS_MODES.items():
             extra = (centre,) if mode.startswith("batched") else ()
-            if not (hd_shape or extra):
+            if extra and lanes_ > 1:
                 continue
             kern = getattr(tos_update, f"{name}_cuda")
             plain = getattr(tos_update, f"{name}_ref")
@@ -1219,12 +1239,12 @@ def main() -> int:
                 library_ms=bmm_ms if extra else None,
                 library_device_ms=bmm_dev if extra else None)
             t["bound_ms"], t["bound_by"] = tos_bound(
-                1, th_, tw_, e, 7, t_keep, centre=bool(extra))
+                lanes_, th_, tw_, e, 7, t_keep, centre=bool(extra))
             lib = (f"; library torch.bmm of the fp16 one-hot bands (counts "
                    f"only) {bmm_ms:.4f} ms events, {bmm_dev:.4f} ms device, "
                    f"kernel/bmm device {t['device_ms'] / bmm_dev:.2f}"
                    if extra else "")
-            if hd_shape:
+            if shape == "hd":
                 t["plain_ms"] = cuda_ms(lambda: plain(
                     tos_in, xy_in, t_keep, *extra, **tkw), iters=3, warmup=1)
                 t["plain_device_ms"] = device_ms(lambda: plain(
@@ -1233,9 +1253,11 @@ def main() -> int:
                 tos_t[mode] = t
                 lib = (f"; plain {t['plain_ms']:.4f} ms events, "
                        f"{t['plain_device_ms']:.4f} ms device{lib}")
+                if mode in was:
+                    lib += f"; was {was[mode]} us device"
             else:
-                tos_t[mode]["davis240"] = t
-            print(f"[time] {smi}: {name} {tw_}x{th_} B=1 E={e} "
+                tos_t[mode][shape] = t
+            print(f"[time] {smi}: {name} {tw_}x{th_} B={lanes_} E={e} "
                   f"({int(t_keep.sum())} kept): {t['ms']:.4f} ms events, "
                   f"{t['device_ms']:.4f} ms device; bound "
                   f"{t['bound_ms']:.6f} ms by {t['bound_by']}{lib}")
@@ -1283,7 +1305,7 @@ def main() -> int:
             "source": f"src/repro_torch/csrc/{src}.cu",
             "replaces": f"src/repro/kernels/tos_update.py:{replaces[mode]}",
             "launches": tos_launches[mode], "max_abs_err": max(
-                k47_err, k57_err if src == "tos_count" else 0.0),
+                k47_err, k57_err if src == "tos_count" else k46_err),
             **tos_t[mode]})
     print(smi)
     print(json.dumps({"kernels": kernels}))

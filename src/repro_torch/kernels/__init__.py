@@ -9,8 +9,9 @@ plain PyTorch version.
   records for the pool's compact readout (``csrc/compact.cu``).
 * ``tos_update``  — K4-K7: the chunked TOS update on its own (NMC replay,
   closed form, and both binned per 128x128 tile) for the ``"nmc"`` /
-  ``"batched"`` backends: ``csrc/tos_update.cu`` replays (K4, K6),
-  ``csrc/tos_count.cu`` counts on the tensor cores (K5, K7).
+  ``"batched"`` backends: ``csrc/tos_update.cu`` computes the replay's
+  closed form per 64x64 tile (K4, K6), ``csrc/tos_count.cu`` counts on
+  the tensor cores (K5, K7).
 * ``ops``         — the dispatching wrappers: a CPU tensor gets the plain
   version, a CUDA tensor gets the kernel (or an error).  Each counts its
   kernel launches.

@@ -16,7 +16,8 @@ surface without the rest of the step (``repro.kernels.tos_update``):
   (halo ``r``).  Tiles are those of the surface padded to multiples of
   128, as in the reference; ``cap=0`` means ``cap=E``, which is lossless.
 
-``*_cuda`` launch ``csrc/tos_update.cu`` (K4, K6: a per-pixel replay) and
+``*_cuda`` launch ``csrc/tos_update.cu`` (K4, K6: the replay's closed form
+over 64 x 64 tiles, every event in parallel; ``th >= 0`` only) and
 ``csrc/tos_count.cu`` (K5, K7: counts on the tensor cores).  ``*_ref`` are
 the plain versions, written as the TPU kernels are: over the padded
 128 x 128 tiles, a serial replay of each tile's events (K4, K6) or a
@@ -222,6 +223,9 @@ def _lib(name: str):
 
 
 def _launch(name, tos, xy, valid, centre, *, patch, th, cap):
+    if name.startswith("nmc") and th < 0:
+        raise ValueError(f"{name} needs th >= 0 (the replay's closed form), "
+                         f"got {th}")
     device = tos.device
     if device.type != "cuda":
         raise ValueError(f"{name}_cuda needs CUDA tensors, got {device}")

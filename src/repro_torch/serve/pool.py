@@ -18,6 +18,8 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
+
 from repro_torch import obs as obs_mod
 from repro_torch.serve import scheduler as scheduler_mod
 from repro_torch.serve.runtime import PoolRuntime
@@ -110,6 +112,24 @@ class DetectorPool:
         self._sched.forget(lane)
         return out
 
+    def warmup(self, xy, ts_us) -> None:
+        """Exercise every executor shape of the default bucket outside any
+        timed region, with the reference's recipe: a scratch lane pumps a
+        multi-round block (the K-block executor), then a lone round (the
+        1-round path), then disconnects, leaving its slot's next tenant
+        nothing.  The port compiles nothing, so this builds the kernels on
+        their first launch and records each block shape once
+        (``compile_cache_sizes``)."""
+        lane = self.connect()
+        b = self._rt._lanes[lane].bucket
+        xy = np.asarray(xy)
+        ts = np.asarray(ts_us)
+        self.feed(lane, xy[:3 * b], ts[:3 * b])
+        self.pump()
+        self.feed(lane, xy[:b], ts[:b])
+        self.pump()
+        self.disconnect(lane)
+
     # -- serving ------------------------------------------------------------
 
     def feed(self, lane: int, xy, ts_us) -> None:
@@ -142,6 +162,10 @@ class DetectorPool:
     def policy(self) -> str:
         return self._sched.policy
 
+    @property
+    def scheduler(self) -> scheduler_mod.StaticScheduler:
+        return self._sched
+
     def stats(self, lane: int) -> dict:
         """Lane accounting; see ``PoolRuntime.stats``."""
         return self._rt.stats(lane)
@@ -153,3 +177,11 @@ class DetectorPool:
         out["policy"] = self._sched.policy
         out.update(self._sched.scheduler_stats())
         return out
+
+    def emit_metrics(self, kind: str = "pool") -> dict:
+        """Snapshot the pool's registry into one record, fold the
+        scheduler's policy counters in as extras, and fan it out to every
+        attached sink (``pool.metrics.attach(...)``).  Returns the record."""
+        extra = {"policy": self._sched.policy,
+                 **self._sched.scheduler_stats()}
+        return self._rt.metrics.emit(kind, extra={"scheduler": extra})

@@ -510,6 +510,12 @@ class PoolRuntime:
     def rounds_executed(self) -> int:
         return self._m_rounds_executed.value()
 
+    def compile_cache_size(self) -> int:
+        """Total block shapes run across buckets (see
+        ``compile_cache_sizes``); membership churn must not grow it."""
+        return sum(n for d in self.compile_cache_sizes().values()
+                   for n in d.values())
+
     def compile_cache_sizes(self) -> dict:
         """Per bucket and block shape, ``{bucket: {"block": n, "single":
         n}}``: the number of distinct shape signatures (shape and dtype of

@@ -207,9 +207,10 @@ _TOS_CASES = [
     for mode, cap in (*((m, "lossless") for m in sorted(ops.TOS_MODES)),
                       ("nmc_binned", "truncating"),
                       ("batched_binned", "truncating"))]
-# K5/K7 on the edge cases of the 64x64 tiles of csrc/tos_count.cu: (hw, B,
-# E, patch, event layout, background below th), each through K5 and K7
-# with cap E, 1 and half the busiest 128-tile's hits.
+# K4-K7 on the edge cases of the 64x64 tiles of csrc/tos_update.cu and
+# csrc/tos_count.cu: (hw, B, E, patch, event layout, background below th),
+# each through K5 and K7, and K4 and K6, with cap E, 1 and half the busiest
+# 128-tile's hits.
 _TOS_EDGE = (
     ((720, 1280), 1, 1, 7, "spread", False),
     ((720, 1280), 1, 300, 7, "clusters", False),
@@ -227,9 +228,10 @@ _TOS_CASES += [
     dict(mode=mode, cap=cap, hw=hw, b=b, e=e, patch=patch, layout=layout,
          below_th=below)
     for hw, b, e, patch, layout, below in _TOS_EDGE
-    for mode, cap in (("batched", "lossless"), ("batched_binned", "lossless"),
-                      ("batched_binned", "one"),
-                      ("batched_binned", "truncating"))]
+    for kind in ("batched", "nmc")
+    for mode, cap in ((kind, "lossless"), (f"{kind}_binned", "lossless"),
+                      (f"{kind}_binned", "one"),
+                      (f"{kind}_binned", "truncating"))]
 
 
 def _edge_inputs(rng, b, h, w, e, layout, below_th, th=225):
@@ -267,8 +269,8 @@ def _case_id(case):
 @pytest.mark.parametrize("case", _TOS_CASES, ids=_case_id)
 def test_tos_update_kernels_match_plain(cuda, case):
     """K4-K7 on the card equal their plain versions; the binned modes also
-    with a ``cap`` below the busiest 128-tile's hit count (and K7 with cap
-    1), K5/K7 also on the edge cases of their tiling."""
+    with a ``cap`` below the busiest 128-tile's hit count (and K6/K7 with
+    cap 1), all four also on the edge cases of their tiling."""
     mode, cap, hw = case["mode"], case["cap"], case["hw"]
     rng = np.random.default_rng(hw[0] + len(mode) + case.get("e", 0))
     if "e" in case:

@@ -212,3 +212,43 @@ def test_pool_masked_rounds_leave_inactive_lanes():
                 pool.poll(lanes[i])
     finally:
         pool.close()
+
+
+def _serve_after(cfg, streams, warm):
+    """A lane holding half a chunk, optionally a ``warmup`` (its scratch
+    lane takes the next slot), then a new tenant in that slot; returns
+    both lanes' results and the held lane's surfaces around the warmup."""
+    pool = DetectorPool(cfg, 3, ring_rounds=2)
+    try:
+        held = pool.connect(seed=1)
+        xy, ts = streams[0]
+        pool.feed(held, xy[:CHUNK // 2], ts[:CHUNK // 2])
+        s = pool._states
+        before = (s.surface[held].clone(), s.sae[held].clone())
+        if warm:
+            pool.warmup(*streams[2])
+        s = pool._states
+        after = (s.surface[held].clone(), s.sae[held].clone())
+        lane = pool.connect(seed=7)
+        pool.feed(lane, *streams[1])
+        pool.feed(held, xy[CHUNK // 2:], ts[CHUNK // 2:])
+        out = (pool.flush(lane), pool.flush(held))
+        return lane, out, before, after
+    finally:
+        pool.close()
+
+
+def test_pool_warmup_leaves_lanes_and_next_tenant():
+    """``warmup``'s scratch lane folds rounds without touching a connected
+    lane's surfaces, and the tenant that next takes its slot serves
+    exactly as in a pool that never warmed up."""
+    cfg = _cfg("dvfs_online")
+    streams = [_stream(s) for s in range(3)]
+    lane, got, before, after = _serve_after(cfg, streams, warm=True)
+    lane0, want, _, _ = _serve_after(cfg, streams, warm=False)
+    assert lane == lane0 == 1
+    for b, a in zip(before, after):
+        assert torch.equal(b, a)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g[0], w[0])
+        np.testing.assert_array_equal(g[1], w[1])

@@ -169,11 +169,12 @@ def test_binned_cap_matches_reference_kernel(kernel, cap_kind, patch):
         assert not torch.equal(got, lossless)   # the cap really dropped hits
 
 
-# The cases the 64x64 tiles of the card's K5/K7 make risky, small enough for
+# The cases the 64x64 tiles of the card's K4-K7 make risky, small enough for
 # interpret mode: (h, w, e, patch, layout, background).  ``one_tile`` puts
 # every event in a 12 x 12 square across 64-tile borders (cover counts
 # above 100, ten 32-event chunks); ``below_th`` is a uniform 0..255
-# background, which the threshold zeroes where no event covers it.
+# background, which K5's closed form zeroes where no event covers it and
+# the NMC replay (K4, K6) leaves as it is.
 EDGE_CASES = {
     "patch31": (100, 130, 40, 31, "spread", "tos"),
     "e37": (90, 140, 37, 7, "spread", "tos"),
@@ -195,7 +196,7 @@ def _edge(case):
 
 
 @pytest.mark.parametrize("case", sorted(EDGE_CASES))
-@pytest.mark.parametrize("mode", ["batched", "batched_binned"])
+@pytest.mark.parametrize("mode", MODES)
 def test_batched_edge_cases_match_reference(case, mode):
     tos, xy, valid, patch = _edge(case)
     got, want = _both(tos, xy, valid, patch=patch, mode=mode)
@@ -204,9 +205,11 @@ def test_batched_edge_cases_match_reference(case, mode):
 
 @pytest.mark.parametrize("case", sorted(EDGE_CASES))
 @pytest.mark.parametrize("cap_kind", ["one", "half"])
-def test_batched_binned_cap_edge_cases(case, cap_kind):
-    """Plain K7 with cap 1 and half the busiest tile's hits against the
-    reference's ``batched_fused_binned_call`` on the edge cases."""
+@pytest.mark.parametrize("kernel", ["batched", "nmc"])
+def test_batched_binned_cap_edge_cases(kernel, case, cap_kind):
+    """Plain K7 / K6 with cap 1 and half the busiest tile's hits against
+    the reference's ``batched_fused_binned_call`` / ``nmc_stream_binned_call``
+    on the edge cases."""
     tos, xy, valid, patch = _edge(case)
     h, w = tos.shape
     th, r = 225, (patch - 1) // 2
@@ -216,26 +219,39 @@ def test_batched_binned_cap_edge_cases(case, cap_kind):
                                        cap=len(xy))
     busiest = int(np.asarray(bins)[..., 2].sum(-1).max())
     cap = 1 if cap_kind == "one" else max(1, busiest // 2)
-    vals = j_tos._clamp_threshold(
-        255 - j_tos._suffix_cover_counts(jx, jv, r), th)
-    centre = j_tos._scatter_last_center_value((h, w), jx, jv, vals)
-    want = j_tu.batched_fused_binned_call(jnp.asarray(tos), jx, jv, centre,
-                                          patch=patch, th=th, cap=cap,
-                                          interpret=True)
     tx, tv = torch.from_numpy(xy)[None], torch.from_numpy(valid)[None]
-    tcentre = ops.centre_surface((h, w), tx, tv, patch=patch, th=th)
-    got = t_tu.batched_fused_binned_ref(torch.from_numpy(tos)[None], tx, tv,
-                                        tcentre, patch=patch, th=th, cap=cap)
+    ttos = torch.from_numpy(tos)[None]
+    if kernel == "nmc":
+        want = j_tu.nmc_stream_binned_call(jnp.asarray(tos), jx, jv,
+                                           patch=patch, th=th, cap=cap,
+                                           interpret=True)
+        got = t_tu.nmc_stream_binned_ref(ttos, tx, tv, patch=patch, th=th,
+                                         cap=cap)
+    else:
+        vals = j_tos._clamp_threshold(
+            255 - j_tos._suffix_cover_counts(jx, jv, r), th)
+        centre = j_tos._scatter_last_center_value((h, w), jx, jv, vals)
+        want = j_tu.batched_fused_binned_call(jnp.asarray(tos), jx, jv,
+                                              centre, patch=patch, th=th,
+                                              cap=cap, interpret=True)
+        tcentre = ops.centre_surface((h, w), tx, tv, patch=patch, th=th)
+        got = t_tu.batched_fused_binned_ref(ttos, tx, tv, tcentre,
+                                            patch=patch, th=th, cap=cap)
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(want))
 
 
-@pytest.mark.parametrize("name", ["nmc_stream", "nmc_stream_binned",
-                                  "batched_fused", "batched_fused_binned"])
-def test_launchers_refuse_cpu_tensors(name):
+@pytest.mark.parametrize("name,th,match", [
+    ("nmc_stream", 225, "CUDA"), ("nmc_stream_binned", 225, "CUDA"),
+    ("batched_fused", 225, "CUDA"), ("batched_fused_binned", 225, "CUDA"),
+    # The NMC replay has no closed form below th = 0 (values go negative):
+    # K4/K6 refuse it before they look at the device.
+    ("nmc_stream", -1, "th >= 0"), ("nmc_stream_binned", -1, "th >= 0"),
+])
+def test_launchers_refuse_cpu_tensors(name, th, match):
     t = torch.zeros((1, 8, 8), dtype=torch.uint8)
     args = [t, torch.zeros((1, 4, 2), dtype=torch.int32),
             torch.ones((1, 4), dtype=torch.bool)]
     if name.startswith("batched"):
         args.append(torch.full((1, 8, 8), -1, dtype=torch.int32))
-    with pytest.raises(ValueError, match="CUDA"):
-        getattr(t_tu, f"{name}_cuda")(*args, patch=7, th=225)
+    with pytest.raises(ValueError, match=match):
+        getattr(t_tu, f"{name}_cuda")(*args, patch=7, th=th)
