@@ -20,7 +20,11 @@ checkout of this repository.  Phases, each printing its own lines:
   3. K2 (Harris response) against its plain version at Sobel 3/5/7 x
      window 1/3/5/7, at 37x101, 180x240 and 1280x720, 1 and 4 lanes, bit
      for bit, Sobel 1 refused; K3 (stream compaction) against its plain
-     version over rows x events x cap x density: every output equal;
+     version over rows x events x cap x density: every output equal; K3's
+     ring push (one launch: slot writes, records, cursors) against the
+     plain push on ``PUSH_CASES`` (R 1-8, L 1-64, E 37/512/8192, dense
+     and cap 1/E/8/E, aligned and offset rows, sequences that wrap the
+     ring and pass a drain's reset): every leaf and cursor equal;
      K4-K7 (the TOS update on its own: NMC replay, closed form, and both
      binned per 128x128 tile) against their plain versions at both sizes,
      512 events, 1 and 4 lanes, the binned ones with ``cap = E`` and with
@@ -47,10 +51,13 @@ checkout of this repository.  Phases, each printing its own lines:
      round (median and spread of three runs, all equal), D2H bytes per
      fetch, overflow slots, and the idle share of a window: 1 - the
      profiler's device busy time over the same window's unprofiled wall;
-     the serving path must launch K1, K2 and K3;
+     the serving path must launch K1, K2 and K3, and push each pool
+     round with exactly one K3 launch;
   7. per-kernel times beside the plain versions' times and a bound from
-     bytes and operations: CUDA events over back-to-back calls (the JSON's
-     ``ms`` and ``plain_ms``, as in the first slice) and the device time
+     bytes and operations (K3's ring push also by host time per push over
+     back-to-back pushes ending in a synchronise): CUDA events over
+     back-to-back calls (the JSON's ``ms`` and ``plain_ms``, as in the
+     first slice) and the device time
      per call from the profiler (``device_ms``, ``plain_device_ms``, which
      leave out the device's wait for the host to enqueue); K1 in place on
      fresh copies of one state, per pass, at 1280x720 with and without BER
@@ -256,6 +263,158 @@ def k3_bound(keep, cap):
     nbytes = rows * (e + cap * 8 + 4) + 4 * read
     t_b, t_o = nbytes / MEM_BPS, rows * e * 3 / INT32_OPS
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def push_bound(lanes, e, cap):
+    """Least time for one ring push: the round's rows read once (scores,
+    keep, three int32 and one bool per lane) and written once into the
+    slot, the ``cap`` records per lane written (compact ring, ``cap`` > 0)
+    and the three cursors read and written; no arithmetic to speak of."""
+    row = lanes * (e * 5 + 13)
+    nbytes = 2 * row + lanes * cap * 8 + 24
+    return nbytes / MEM_BPS * 1e3, "bytes"
+
+
+# (rounds, lanes, E) of the ring-push cases, each dense and with cap 1,
+# E/8 and E, with aligned rows and with rows one element into their
+# buffers: one slot, a ragged row (scalar copies), the pools' shapes, the
+# longest chunk, a wide pool.
+PUSH_CASES = ((1, 1, 37), (3, 4, 512), (8, 16, 512), (2, 3, 8192),
+              (3, 64, 37))
+
+
+def push_rows(rng, lanes, e, dev, step, offset=0):
+    """One round's lane rows on ``dev`` (scores, keep, n_kept, vdd_idx,
+    n_valid, mask): push 0 keeps nothing, push 1 everything, later ones a
+    random share per lane; with ``offset`` each row tensor starts one
+    element into its buffer, so no row is 16-byte aligned."""
+    import numpy as np
+    import torch
+    density = {0: 0.0, 1: 1.0}.get(step, rng.random((lanes, 1)))
+    keep = rng.random((lanes, e)) < density
+    out = []
+    for a in (rng.standard_normal((lanes, e)).astype(np.float32), keep,
+              keep.sum(-1).astype(np.int32),
+              rng.integers(0, 9, lanes).astype(np.int32),
+              rng.integers(0, e + 1, lanes).astype(np.int32),
+              rng.random(lanes) < 0.7):
+        t = torch.from_numpy(a)
+        buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=dev)
+        out.append(buf[offset:].view(t.shape).copy_(t))
+    return out
+
+
+def push_phase(rng, dev, cases=PUSH_CASES):
+    """K3's ring push (``compact.ring_push_cuda``) against the plain push
+    on the same rows, after every push of a sequence of 2R + 3 that wraps
+    the ring and zeroes ``count`` / ``dropped`` (a drain's ``_reset_ring``)
+    after push R: every leaf, records and cursors included, equal.
+    Returns (max |delta| over the records' finite scores, checks)."""
+    import torch
+    from repro_torch.core import state
+    from repro_torch.kernels import compact
+    from repro_torch.serve.runtime import PoolRuntime
+    err, n = 0.0, 0
+    for rounds, lanes, e in cases:
+        for cap in (None, 1, e // 8, e):
+            for offset in (0, 1):
+                if cap is None:
+                    rings = [state.ring_init(rounds, lanes, e, device=dev)
+                             for _ in range(2)]
+                else:
+                    rings = [state.compact_ring_init(rounds, lanes, e, cap,
+                                                     device=dev)
+                             for _ in range(2)]
+                got, want = rings
+                for step in range(2 * rounds + 3):
+                    if step == rounds + 1:
+                        for r in rings:
+                            PoolRuntime._reset_ring(r)
+                    rows = push_rows(rng, lanes, e, dev, step, offset)
+                    compact.ring_push_cuda(got, *rows)
+                    compact.ring_push_ref(want, *rows)
+                    sync(dev)
+                    for name in type(got)._fields:
+                        if not torch.equal(getattr(got, name),
+                                           getattr(want, name)):
+                            raise AssertionError(
+                                f"ring push {name} differs after push "
+                                f"{step} at R={rounds} L={lanes} E={e} "
+                                f"cap={cap} offset={offset}")
+                    n += 1
+                if int(got.dropped) == 0:
+                    raise AssertionError("the push sequence dropped nothing")
+                if cap is not None:
+                    fin = torch.isfinite(want.c_val)
+                    if fin.any():
+                        err = max(err, float(
+                            (got.c_val - want.c_val)[fin].abs().max()))
+    print(f"[K3 push] {n} pushes (R x L x E in {list(cases)}, dense and "
+          f"cap 1/E/8/E, aligned and offset rows, 2R+3 pushes with a "
+          f"reset): every leaf and cursor equal to the plain push")
+    return err, n
+
+
+def host_ms(fn, n=2000, warmup=20) -> float:
+    """Host time per call of ``fn`` (ms): ``perf_counter`` over ``n``
+    back-to-back calls ending in a synchronise."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def push_timing(smi, dev, kept_frac, rounds=8, e=512, cap=64):
+    """Host time per push and device time per launch of K3's ring push at
+    the pools' widths (4 and 16 lanes of 512, cap 64, 8 slots), dense and
+    compact, beside the plain push on the card and the split route (K3's
+    standalone compaction, then the plain slot writes and cursor ops)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import state
+    from repro_torch.kernels import compact
+    out = {}
+    for lanes in (4, 16):
+        rows = push_rows(np.random.default_rng(lanes), lanes, e, dev, 2)
+        rows[1].copy_(torch.rand(rows[1].shape, device=dev) < kept_frac)
+        rows[2].copy_(rows[1].sum(-1))
+        t = {}
+        for mode, c in (("dense", 0), ("compact", cap)):
+            ring = (state.compact_ring_init(rounds, lanes, e, c, device=dev)
+                    if c else state.ring_init(rounds, lanes, e, device=dev))
+            twin = (state.compact_ring_init(rounds, lanes, e, c, device=dev)
+                    if c else state.ring_init(rounds, lanes, e, device=dev))
+            push = (lambda r=ring: compact.ring_push_cuda(r, *rows))
+            plain = (lambda r=twin: compact.ring_push_ref(r, *rows))
+            bms, by = push_bound(lanes, e, c)
+            t[mode] = dict(
+                host_ms=host_ms(push), ms=cuda_ms(push, iters=200),
+                device_ms=device_ms(push, iters=200),
+                plain_host_ms=host_ms(plain, n=500),
+                plain_ms=cuda_ms(plain, iters=100),
+                plain_device_ms=device_ms(plain, iters=100),
+                bound_ms=bms, bound_by=by)
+            if c:
+                t[mode]["split_host_ms"] = host_ms(
+                    lambda r=twin: compact.ring_push_ref(
+                        r, *rows, compact_fn=compact.compact_cuda), n=500)
+            x = t[mode]
+            split = (f"; split route (standalone K3 + plain writes) "
+                     f"{x['split_host_ms']:.5f} ms host" if c else "")
+            print(f"[time] {smi}: K3 ring push {mode} R={rounds} L={lanes} "
+                  f"E={e}{f' cap={c}' if c else ''}: {x['host_ms']:.5f} ms "
+                  f"host per push, {x['ms']:.5f} ms by CUDA events, "
+                  f"{x['device_ms']:.5f} ms device per launch; plain "
+                  f"{x['plain_host_ms']:.5f} ms host, "
+                  f"{x['plain_device_ms']:.5f} ms device{split}; bound "
+                  f"{x['bound_ms']:.7f} ms by {x['bound_by']}")
+        out[f"L{lanes}"] = t
+    return out
 
 
 def sync(dev) -> None:
@@ -801,10 +960,16 @@ def serving_phase(smi, *, device, lanes=16, hd_lanes=4, dav_us=200_000,
                           slab=16384, readout="compact", drain_mode="async",
                           **pool_kw) for _ in range(reps)]
     serve_launches = dict(ops.LAUNCHES)
-    print(f"[serve] launches on the serving path: {serve_launches}")
+    pushed = sum(g[3]["rounds_executed"] for got in (*runs.values(), hd_runs)
+                 for g in got)
+    print(f"[serve] launches on the serving path: {serve_launches}; "
+          f"{pushed} pool rounds")
     if device != "cpu" and min(serve_launches[k] for k in (
             "fused_step", "harris", "compact")) <= 0:
         raise AssertionError(f"a kernel was not launched: {serve_launches}")
+    if device != "cpu" and serve_launches["compact"] != pushed:
+        raise AssertionError(f"{serve_launches['compact']} K3 ring pushes "
+                             f"for {pushed} pool rounds")
 
     for name, got in {**runs, "hd_compact": hd_runs}.items():
         for r, again in enumerate(got[1:], 1):
@@ -909,7 +1074,8 @@ def profile_pool(smi, what, cfg, streams, seeds, n_events, reps=3,
           f"{1 - busy / wall:.3f} (min {1 - busy / walls[0]:.3f}, max "
           f"{1 - busy / walls[-1]:.3f}); {n_launch} kernels and copies, "
           f"{n_launch / rounds:.0f} per round")
-    ours = (*K1_KERNELS, "harris_kernel", "compact_kernel")
+    ours = (*K1_KERNELS, "harris_kernel", "compact_kernel",
+            "ring_push_kernel")
     for i, r in enumerate(sorted(
             (r for r in dev_rows if r.self_device_time_total > 0),
             key=lambda r: -r.self_device_time_total)):
@@ -1002,6 +1168,7 @@ def main() -> int:
                     n_cases += 1
     print(f"[K3] {n_cases} cases (rows 1/16/128 x E 128/512/4096 x cap "
           f"1/E/8/E x density 0/0.05/1): idx, val, count equal")
+    push_err, _ = push_phase(np.random.default_rng(15), dev)
 
     # --- 3c. K4-K7 against their plain versions -------------------------
     k47_err = tos_kernel_phase(np.random.default_rng(13), dev)
@@ -1193,6 +1360,7 @@ def main() -> int:
               f"per launch; plain {t['plain_ms']:.4f} ms events, "
               f"{t['plain_device_ms']:.4f} ms device; bound "
               f"{t['bound_ms']:.7f} ms by {t['bound_by']}")
+    push_t = push_timing(smi, dev, kept_frac)
 
     # K4-K7 at the main path's shapes: HD, B=1, E=512, K1's kept events;
     # also at DAVIS240 B=1, where the 64x64 tiles are few and dense, and
@@ -1293,8 +1461,9 @@ def main() -> int:
         {"name": "compact", "route": "cuda",
          "source": "src/repro_torch/csrc/compact.cu",
          "replaces": "src/repro/kernels/compact.py:65",
-         "launches": launches["compact"], "max_abs_err": k3_err,
-         "library_ms": None, **k3[4]},
+         "launches": launches["compact"],
+         "max_abs_err": max(k3_err, push_err), "library_ms": None,
+         **k3[4], "ring_push": push_t},
     ]
     replaces = {"nmc": 82, "batched": 328, "nmc_binned": 182,
                 "batched_binned": 292}

@@ -43,7 +43,8 @@ lanes stacked on a leading axis).
 ``RingState`` / ``CompactRingState`` are the pool's fixed-capacity device
 result rings; ``ring_push`` / ``ring_push_compact`` write one round into
 the next slot in place, with the cursors (``head``, ``count``,
-``dropped``) as device scalars, as in the reference.
+``dropped``) as device scalars, as in the reference; on CUDA a push is one
+launch of K3's ring push.
 """
 from __future__ import annotations
 
@@ -610,7 +611,9 @@ class RingState(NamedTuple):
     Pushing onto a full ring overwrites the oldest slot and counts it in
     ``dropped``.  The cursors are int32 device scalars updated on the
     device by the push, as in the reference; the owner zeroes ``count``
-    and ``dropped`` at every drain.
+    and ``dropped`` at every drain.  ``ring_init`` makes ``head``,
+    ``count`` and ``dropped`` views of one int32 block of four, whose
+    fourth is the push kernel's ticket (0 between pushes).
     """
 
     scores: torch.Tensor   # (R, lanes, chunk) float32
@@ -654,12 +657,13 @@ def ring_init(rounds: int, lanes: int, chunk: int, *,
     def z(*shape, dtype=torch.int32):
         return torch.zeros(shape, dtype=dtype, device=device)
 
+    cursors = z(4)   # head, count, dropped, the push kernel's ticket
     return RingState(
         scores=z(rounds, lanes, chunk, dtype=torch.float32),
         keep=z(rounds, lanes, chunk, dtype=torch.bool),
         n_kept=z(rounds, lanes), vdd_idx=z(rounds, lanes),
         n_valid=z(rounds, lanes), mask=z(rounds, lanes, dtype=torch.bool),
-        head=z(), count=z(), dropped=z(),
+        head=cursors[0], count=cursors[1], dropped=cursors[2],
     )
 
 
@@ -679,46 +683,30 @@ def compact_ring_init(rounds: int, lanes: int, chunk: int, cap: int, *,
     )
 
 
-def _write_slot(ring, pairs) -> None:
-    """Write each ``(buffer, value)`` at the slot ``ring.head`` points to,
-    then advance the device cursors."""
-    rounds = ring.scores.shape[0]
-    slot = ring.head.long().reshape(1)
-    for buf, val in pairs:
-        buf.index_copy_(0, slot, val.unsqueeze(0))
-    ring.dropped.add_((ring.count == rounds).to(torch.int32))
-    ring.count.add_(1).clamp_(max=rounds)
-    ring.head.add_(1).remainder_(rounds)
-
-
 def ring_push(ring: RingState, outs: ChunkOutput, mask: torch.Tensor,
               n_valid: torch.Tensor) -> RingState:
     """Append one executed round to the ring, in place; returns ``ring``.
 
     ``outs`` is the round's lane-stacked ``ChunkOutput``, ``mask`` /
-    ``n_valid`` its ``(lanes,)`` device rows.  The reference's ``active``
-    flag has no counterpart: the pool never pushes its padded rounds.
+    ``n_valid`` its ``(lanes,)`` device rows.  A ``CompactRingState`` also
+    stores the round's records.  On CUDA the whole push, records and
+    cursors included, is one launch of K3's ring push
+    (``ops.ring_push_op``).  The reference's ``active`` flag has no
+    counterpart: the pool never pushes its padded rounds.
     """
-    _write_slot(ring, ((ring.scores, outs.scores), (ring.keep, outs.keep),
-                       (ring.n_kept, outs.n_kept),
-                       (ring.vdd_idx, outs.vdd_idx),
-                       (ring.n_valid, n_valid), (ring.mask, mask)))
-    return ring
+    return ops.ring_push_op(ring, outs.scores, outs.keep, outs.n_kept,
+                            outs.vdd_idx, n_valid, mask)
 
 
 def ring_push_compact(ring: CompactRingState, outs: ChunkOutput,
-                      mask: torch.Tensor, n_valid: torch.Tensor, *,
-                      compact_fn: Callable) -> CompactRingState:
-    """``ring_push`` that also stores the round's records:
-    ``compact_fn(scores, keep) -> (idx, val, count)`` (the pool binds
-    ``ops.compact_slots_op``, K3)."""
-    c_idx, c_val, _ = compact_fn(outs.scores, outs.keep)
-    _write_slot(ring, ((ring.scores, outs.scores), (ring.keep, outs.keep),
-                       (ring.n_kept, outs.n_kept),
-                       (ring.vdd_idx, outs.vdd_idx),
-                       (ring.n_valid, n_valid), (ring.mask, mask),
-                       (ring.c_idx, c_idx), (ring.c_val, c_val)))
-    return ring
+                      mask: torch.Tensor,
+                      n_valid: torch.Tensor) -> CompactRingState:
+    """``ring_push`` onto a compact ring (the reference's name): the
+    round's records are ranked in the same launch, so there is no
+    ``compact_fn`` to bind."""
+    if not isinstance(ring, CompactRingState):
+        raise TypeError("ring_push_compact needs a CompactRingState")
+    return ring_push(ring, outs, mask, n_valid)
 
 
 def ring_slot_order(head: int, count: int, rounds: int) -> list[int]:

@@ -1,8 +1,8 @@
 """The dispatching wrappers the detector step calls.
 
 ``fused_step_op`` / ``fused_step_op_`` (K1, functional / in place),
-``harris_response_op`` (K2), ``compact_slots_op`` (K3) and
-``tos_update_op`` (K4-K7) take the tensor's device as the choice of
+``harris_response_op`` (K2), ``compact_slots_op`` and ``ring_push_op``
+(K3) and ``tos_update_op`` (K4-K7) take the tensor's device as the choice of
 spelling: a CPU tensor gets the plain PyTorch version, a CUDA tensor gets
 the hand-written kernel — or an error; there is no fallback from a CUDA
 tensor to a plain version.  Surfaces may be one ``(H, W)`` lane or a
@@ -10,7 +10,8 @@ tensor to a plain version.  Surfaces may be one ``(H, W)`` lane or a
 
 Each wrapper counts its kernel launches in ``LAUNCHES`` (plain calls on the
 CPU are not counted), so a run can show that its main path went through the
-kernels.
+kernels; ``"compact"`` counts K3's ring pushes, dense and compact, and its
+standalone compactions.
 """
 from __future__ import annotations
 
@@ -22,8 +23,8 @@ from repro_torch.core import tos as tos_mod
 from repro_torch.kernels import compact, fused_step, harris_conv, tos_update
 
 __all__ = ["fused_step_op", "fused_step_op_", "harris_response_op",
-           "compact_slots_op", "tos_update_op", "centre_surface",
-           "TOS_MODES", "LAUNCHES", "reset_launch_counts"]
+           "compact_slots_op", "ring_push_op", "tos_update_op",
+           "centre_surface", "TOS_MODES", "LAUNCHES", "reset_launch_counts"]
 
 # tos_update_op's modes, each with its kernel in ``kernels.tos_update``.
 TOS_MODES = {"nmc": "nmc_stream", "batched": "batched_fused",
@@ -130,6 +131,21 @@ def compact_slots_op(scores: torch.Tensor, keep: torch.Tensor, *, cap: int):
         LAUNCHES["compact"] += 1
     return (idx.reshape(*lead, cap), val.reshape(*lead, cap),
             cnt.reshape(lead))
+
+
+def ring_push_op(ring, scores, keep, n_kept, vdd_idx, n_valid, mask):
+    """Push one round's lane rows into a pool's result ring in place (K3's
+    ring push; a compact ring also gets the rows' records) and advance its
+    cursors; returns ``ring``.  ``scores`` / ``keep`` are ``(L, E)``,
+    ``n_kept``, ``vdd_idx``, ``n_valid`` ``(L,)`` int32, ``mask`` ``(L,)``
+    bool.  On CUDA this is one launch."""
+    if _device_type(ring.scores) == "cpu":
+        return compact.ring_push_ref(ring, scores, keep, n_kept, vdd_idx,
+                                     n_valid, mask)
+    compact.ring_push_cuda(ring, scores, keep, n_kept, vdd_idx, n_valid,
+                           mask)
+    LAUNCHES["compact"] += 1
+    return ring
 
 
 def centre_surface(shape, xy, valid, *, patch: int, th: int):

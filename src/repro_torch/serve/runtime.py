@@ -14,7 +14,8 @@ program: for each ready round, in round order, it runs the lane-batched
 in one launch, which leaves the inactive lanes' surfaces untouched; K2
 over the lanes whose LUT refresh is due), keeps the inactive lanes' other
 leaves (the masked select), and pushes the round into the bucket's live
-device ring — with ``readout="compact"`` through K3.  Rounds are gathered
+device ring in one K3 ring-push launch (which, with ``readout="compact"``,
+also ranks the round's kept-event records).  Rounds are gathered
 ``ring_rounds`` at a time into a block and uploaded as the reference
 uploads them: a block with one ready round as ``(lanes, chunk)`` slabs,
 any other as padded ``(ring_rounds, lanes, chunk)`` slabs whose padded
@@ -75,7 +76,7 @@ from repro_torch import obs as obs_mod
 from repro_torch.core import dvfs as dvfs_mod
 from repro_torch.core import pipeline as pipeline_mod
 from repro_torch.core import state as state_mod
-from repro_torch.kernels import fused_step, ops
+from repro_torch.kernels import fused_step
 from repro_torch.launch import sharding as sharding_mod
 from repro_torch.obs.schema import POOL_BUCKET_STATS, POOL_STATS
 from repro_torch.serve import streaming as streaming_mod
@@ -414,16 +415,10 @@ class PoolRuntime:
                                    device=self._device)
 
     def _push(self, bucket: int, outs, mask, n_valid) -> None:
-        """Push one executed round into the bucket's live ring (compact
-        readout: through K3, ``ops.compact_slots_op``)."""
-        ring = self._rings[bucket]
-        if self._readout == "compact":
-            cap = self._compact_caps[bucket]
-            state_mod.ring_push_compact(
-                ring, outs, mask, n_valid,
-                compact_fn=lambda s, k: ops.compact_slots_op(s, k, cap=cap))
-        else:
-            state_mod.ring_push(ring, outs, mask, n_valid)
+        """Push one executed round into the bucket's live ring: one K3
+        ring-push launch on CUDA, which also ranks a compact ring's
+        records."""
+        state_mod.ring_push(self._rings[bucket], outs, mask, n_valid)
 
     @staticmethod
     def _reset_ring(ring: state_mod.RingState) -> state_mod.RingState:
@@ -964,7 +959,7 @@ class PoolRuntime:
     def _dispatch_block(self, blk: _StagedBlock) -> None:
         """The dispatch half: make ring room (``"drain"`` policy) and run
         the block's rounds: for each, the lane-batched step (K1, K2 where
-        due), the masked select, and the ring push (K3 when compact)."""
+        due), the masked select, and the ring push (K3)."""
         bucket, k, n = blk.bucket, self._ring_rounds, blk.n
         if self._overflow == "drain" and \
                 self._m_ring_count[bucket].value() + n > k:

@@ -14,11 +14,13 @@ from repro_torch.core import ber as t_ber  # noqa: E402
 from repro_torch.core import prng  # noqa: E402
 from repro_torch.core.stcf import NEVER  # noqa: E402
 from repro_torch.core import pipeline  # noqa: E402
+from repro_torch.core import state as t_state  # noqa: E402
 from repro_torch.events import synthetic  # noqa: E402
 from repro_torch.kernels import compact, fused_step, harris_conv, ops  # noqa: E402,E501
 from repro_torch.kernels import tos_update  # noqa: E402
 from repro_torch.obs.schema import WALL_TIME_KEYS  # noqa: E402
 from repro_torch.serve import DetectorPool  # noqa: E402
+from repro_torch.serve.runtime import PoolRuntime  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 REL = 1e-5
@@ -199,6 +201,65 @@ def test_compact_kernel_matches_plain(cuda, e, cap, density):
         assert torch.equal(p, g.reshape(p.shape)), name
 
 
+# (rounds, lanes, E) of the ring-push cases: one slot, a ragged row (scalar
+# copies), the pool's shapes, the longest chunk, a wide pool.
+_PUSH_SHAPES = [(1, 1, 37), (3, 4, 512), (8, 16, 512), (2, 3, 8192),
+                (3, 64, 37)]
+
+
+def _push_rows(rng, lanes, e, dev, step, offset):
+    """One round's lane rows on ``dev``: push 0 keeps nothing, push 1
+    everything; with ``offset`` each row tensor starts one element into
+    its buffer, so no row is 16-byte aligned."""
+    density = {0: 0.0, 1: 1.0}.get(step, rng.random((lanes, 1)))
+    keep = rng.random((lanes, e)) < density
+    rows = (rng.standard_normal((lanes, e)).astype(np.float32), keep,
+            keep.sum(-1).astype(np.int32),
+            rng.integers(0, 9, lanes).astype(np.int32),
+            rng.integers(0, e + 1, lanes).astype(np.int32),
+            rng.random(lanes) < 0.7)
+    out = []
+    for a in rows:
+        t = torch.from_numpy(a)
+        buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=dev)
+        view = buf[offset:].view(t.shape)
+        out.append(view.copy_(t))
+    return out
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("cap", ["dense", 1, "E/8", "E"])
+@pytest.mark.parametrize("rounds,lanes,e", _PUSH_SHAPES)
+def test_ring_push_kernel_matches_plain(cuda, rounds, lanes, e, cap, offset):
+    """K3's ring push (one launch through ``ops.ring_push_op``) against the
+    plain push on the card, after every push of a sequence that wraps the
+    ring and passes a drain's reset: every leaf, records and cursors
+    included, bit for bit."""
+    cap = {"dense": None, "E/8": e // 8, "E": e}.get(cap, cap)
+
+    def make():
+        if cap is None:
+            return t_state.ring_init(rounds, lanes, e, device=cuda)
+        return t_state.compact_ring_init(rounds, lanes, e, cap, device=cuda)
+
+    got, want = make(), make()
+    rng = np.random.default_rng(rounds * 1000 + lanes * 10 + e)
+    for step in range(2 * rounds + 3):
+        if step == rounds + 1:
+            PoolRuntime._reset_ring(got)
+            PoolRuntime._reset_ring(want)
+        rows = _push_rows(rng, lanes, e, cuda, step, offset)
+        before = ops.LAUNCHES["compact"]
+        assert ops.ring_push_op(got, *rows) is got
+        assert ops.LAUNCHES["compact"] == before + 1
+        compact.ring_push_ref(want, *rows)
+        torch.cuda.synchronize()
+        for name in type(got)._fields:
+            assert torch.equal(getattr(got, name), getattr(want, name)), (
+                name, step)
+    assert int(got.dropped) > 0
+
+
 # Every mode at three sizes, the binned ones also with a cap below the
 # busiest 128-tile's hits.
 _TOS_CASES = [
@@ -306,13 +367,13 @@ def test_tos_update_kernels_match_plain(cuda, case):
     assert torch.equal(plain, got)
 
 
-def _serve_two_lanes(device, backend="fused"):
+def _serve_two_lanes(device, backend="fused", readout="compact"):
     cfg = pipeline.PipelineConfig(
         height=180, width=240, chunk=512, lut_every_chunks=2, dvfs=True,
         dvfs_online=True, inject_ber=True, device=device, backend=backend)
     streams = [synthetic.shapes_stream(duration_us=60_000, seed=s)
                for s in (0, 1)]
-    pool = DetectorPool(cfg, 2, ring_rounds=4, readout="compact")
+    pool = DetectorPool(cfg, 2, ring_rounds=4, readout=readout)
     lanes = [pool.connect(seed=s) for s in (0, 1)]
     outs = {0: [], 1: []}
     for start in range(0, 6000, 1500):
@@ -358,3 +419,11 @@ def test_pool_on_cuda_equals_cpu(cuda):
 def test_pool_batched_backend_on_cuda_equals_cpu(cuda):
     """The same on backend ``"batched"``: K5, K2 and K3 on the card."""
     _assert_pool_cuda_equals_cpu("batched", ("batched", "harris", "compact"))
+
+
+@pytest.mark.parametrize("readout", ["dense", "compact"])
+def test_pool_round_pushes_with_one_launch(cuda, readout):
+    """Every pool round is one K3 ring-push launch, in both readouts."""
+    ops.reset_launch_counts()
+    _, stats = _serve_two_lanes("cuda", readout=readout)
+    assert ops.LAUNCHES["compact"] == stats["rounds_executed"] > 0

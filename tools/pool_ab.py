@@ -14,7 +14,8 @@ compact), on their first 64 chunks per lane, and folds the first 128
 chunks of the HD stream through ``run_pipeline`` (online DVFS with BER),
 ``N`` times each after a warm-up.  Prints, per cell, every run's ms per
 round (per chunk for the batch run) on the host clock and the median, and
-the device busy time per round from one profiled run.  The card's name
+the device busy time and the kernels and copies per round from one
+profiled run.  The card's name
 and power limit come first.
 """
 from __future__ import annotations
@@ -75,13 +76,17 @@ def main() -> int:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             _, _, _, st = run()
-        busy = sum(r.self_device_time_total for r in prof.key_averages()
-                   if str(r.device_type).endswith("CUDA")) / 1e3
+        dev_rows = [r for r in prof.key_averages()
+                    if str(r.device_type).endswith("CUDA")]
+        busy = sum(r.self_device_time_total for r in dev_rows) / 1e3
+        launched = sum(r.count for r in dev_rows)
         med = sorted(per)[len(per) // 2]
         print(f"[ab] {name}: ms per round "
               + " ".join(f"{t:.4f}" for t in per)
               + f"; median {med:.4f}; device busy "
-              f"{busy / st['rounds_executed']:.4f} ms per round")
+              f"{busy / st['rounds_executed']:.4f} ms per round; "
+              f"{launched / st['rounds_executed']:.1f} kernels and copies "
+              f"per round")
 
     s = hd[0]
     win = slice(0, 128 * 512)
