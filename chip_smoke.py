@@ -53,6 +53,19 @@ checkout of this repository.  Phases, each printing its own lines:
      profiler's device busy time over the same window's unprofiled wall;
      the serving path must launch K1, K2 and K3, and push each pool
      round with exactly one K3 launch;
+  6b. the adaptive pool (``policy="adaptive"``) at the DAVIS240 x16
+     pool's width: buckets 128/512/2048, every lane connecting at 128, on
+     ``synthetic.ramp_stream`` feeds that move half the lanes up to 2048
+     and down to 512 and the other half down to 128 and up to 2048, one
+     half-window per pump, lane 1 shedding with ``lut_every`` 3 and lane
+     2 capped at operating point 0; async dense and compact, three runs
+     each, all equal; events/s, ms per round, migrations, shed events and
+     the host time of a poll that stages a move; every lane of the first
+     half must migrate at least twice, K1-K3 must launch, one K3 push per
+     round; a 14-half-window prefix equal to the same pool on the CPU
+     (kept, migration logs, ``pool_stats()``; scores within the bound)
+     and lane 0 equal to a ``StreamingDetector`` that ``rebucket()``s at
+     its logged boundaries;
   7. per-kernel times beside the plain versions' times and a bound from
      bytes and operations (K3's ring push also by host time per push over
      back-to-back pushes ending in a synchronise): CUDA events over
@@ -914,6 +927,15 @@ def serve_pool(cfg, streams, seeds, *, slab, max_events=None, **pool_kw):
     return res, wall, served, stats
 
 
+def davis_pool_cfg(device):
+    """The DAVIS240 pool's config: 180x240, chunk 512, online DVFS with
+    BER (phases 6 and 6b)."""
+    from repro_torch.core import pipeline
+    return pipeline.PipelineConfig(chunk=512, lut_every_chunks=2, patch=7,
+                                   th=225, dvfs=True, dvfs_online=True,
+                                   inject_ber=True, device=device)
+
+
 def serving_phase(smi, *, device, lanes=16, hd_lanes=4, dav_us=200_000,
                   hd_us=100_000, hold_chunks=(24, 4), profile_chunks=32,
                   reps=3):
@@ -929,10 +951,7 @@ def serving_phase(smi, *, device, lanes=16, hd_lanes=4, dav_us=200_000,
 
     dav_streams = [synthetic.shapes_stream(duration_us=dav_us, seed=s)
                    for s in range(lanes)]
-    dav_cfg = pipeline.PipelineConfig(chunk=512, lut_every_chunks=2,
-                                      patch=7, th=225, dvfs=True,
-                                      dvfs_online=True, inject_ber=True,
-                                      device=device)
+    dav_cfg = davis_pool_cfg(device)
     hd_streams = [synthetic.shapes_stream(
         height=720, width=1280, duration_us=hd_us, n_shapes=12,
         signal_rate_per_us=2.0, noise_rate_per_us=0.5, seed=s)
@@ -1043,6 +1062,199 @@ def serving_phase(smi, *, device, lanes=16, hd_lanes=4, dav_us=200_000,
                  hd_streams, seeds[:hd_lanes], profile_chunks * 512,
                  readout="compact", **pool_kw)
     return serve_launches, kept_frac
+
+
+ADAPTIVE_BUCKETS = (128, 512, 2048)
+# events per DVFS half-window: the first half of the lanes ramp up to
+# 2048 and back down to 512, the second half down to 128 and up to 2048
+ADAPTIVE_RATES = ([100] * 10 + [1500] * 20 + [400] * 10,
+                  [400] * 10 + [100] * 20 + [1500] * 10)
+
+
+def adaptive_streams(lanes, windows, half_us):
+    """Lane ``s``'s ramp (``synthetic.ramp_stream``, seed ``s``), cut to
+    its first ``windows`` half-windows."""
+    from repro_torch.events import synthetic
+    return [synthetic.ramp_stream(
+        ADAPTIVE_RATES[s >= lanes // 2][:windows], half_us, seed=s)
+        for s in range(lanes)]
+
+
+def adaptive_run(cfg, streams, windows, **pool_kw):
+    """Serve ``streams`` on an adaptive pool (every lane connects at 128;
+    lane 1 sheds with ``lut_every`` 3, lane 2 has ``vdd_cap`` 0): feed one
+    half-window per lane, pump, poll every lane, for ``windows``
+    half-windows, then flush.  Returns per-lane (scores, kept), the wall
+    from the first feed to the last flush, the events served,
+    ``pool_stats()``, the migration logs, whether every executor ran one
+    block shape, and the host seconds of the polls that staged a move and
+    of the others."""
+    import numpy as np
+    from repro_torch.serve import DetectorPool
+    half = cfg.dvfs_cfg.half_us
+    pool = DetectorPool(cfg, len(streams), buckets=ADAPTIVE_BUCKETS,
+                        policy="adaptive", migrate_patience=2, ring_rounds=8,
+                        pipeline_depth=2, **pool_kw)
+    try:
+        lanes = [pool.connect(seed=s, chunk=128) for s in range(len(streams))]
+        pool.set_lane_control(lanes[1], lut_every=3, shed=True)
+        pool.set_lane_control(lanes[2], vdd_cap=0)
+        wins = [st.ts // half for st in streams]
+        outs = {i: [] for i in range(len(lanes))}
+        polls = {"staged": [], "other": []}
+        t0 = time.perf_counter()
+        for j in range(windows):
+            for i, lane in enumerate(lanes):
+                m = wins[i] == j
+                pool.feed(lane, streams[i].xy[m], streams[i].ts[m])
+            pool.pump()
+            for i, lane in enumerate(lanes):
+                t1 = time.perf_counter()
+                outs[i].append(pool.poll(lane))
+                dt = time.perf_counter() - t1
+                staged = lane in pool._rt.staged_migrations()
+                polls["staged" if staged else "other"].append(dt)
+        for i, lane in enumerate(lanes):
+            outs[i].append(pool.flush(lane))
+        wall = time.perf_counter() - t0
+        lane_stats = [pool.stats(lane) for lane in lanes]
+        return (
+            {i: (np.concatenate([o[0] for o in v]),
+                 np.concatenate([o[1] for o in v])) for i, v in outs.items()},
+            wall, sum(st["n_events"] for st in lane_stats),
+            pool.pool_stats(), [st["migration_log"] for st in lane_stats],
+            pool.executors_compiled_once(), polls)
+    finally:
+        pool.close()
+
+
+def rebucket_replay(cfg, xy, ts, log):
+    """Lane 0 of ``adaptive_run`` as one ``StreamingDetector`` that starts
+    at 128 and ``rebucket()``s at each logged boundary."""
+    import numpy as np
+    from repro_torch.serve import StreamingDetector
+    det = StreamingDetector(cfg, chunk=128, seed=0)
+    parts, cur = [], 0
+    for m, _frm, to in log:
+        parts.append(det.feed(xy[cur:m], ts[cur:m]))
+        det.rebucket(to)
+        cur = m
+    parts.append(det.feed(xy[cur:], ts[cur:]))
+    parts.append(det.flush())
+    return (np.concatenate([p[0] for p in parts]),
+            np.concatenate([p[1] for p in parts]))
+
+
+def adaptive_phase(smi, *, device, lanes=16, windows=40, cpu_windows=14,
+                   reps=3):
+    """Phase 6b: the adaptive pool (``policy="adaptive"``, live bucket
+    migration and per-lane knobs) at the DAVIS240 x16 pool's width on
+    ``device``, async, dense and compact readout, ``reps`` runs each
+    (every repeat must give the same results); then a prefix of
+    ``cpu_windows`` half-windows against the same pool on the CPU, and
+    lane 0 against a ``rebucket`` replay.  Returns the launch counts of
+    the timed runs.  Smaller arguments rehearse the phase on the CPU."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.obs.schema import WALL_TIME_KEYS
+
+    t_phase = time.perf_counter()
+    cfg = davis_pool_cfg(device)
+    streams = adaptive_streams(lanes, windows, cfg.dvfs_cfg.half_us)
+    ops.reset_launch_counts()
+    runs = {ro: [adaptive_run(cfg, streams, windows, readout=ro,
+                              drain_mode="async") for _ in range(reps)]
+            for ro in ("dense", "compact")}
+    launches = dict(ops.LAUNCHES)
+    rounds = sum(g[3]["rounds_executed"] for got in runs.values()
+                 for g in got)
+    print(f"[adaptive] launches: {launches}; {rounds} pool rounds")
+    if device != "cpu" and min(launches[k] for k in (
+            "fused_step", "harris", "compact")) <= 0:
+        raise AssertionError(f"a kernel was not launched: {launches}")
+    if device != "cpu" and launches["compact"] != rounds:
+        raise AssertionError(f"{launches['compact']} K3 ring pushes for "
+                             f"{rounds} pool rounds")
+    for ro, got in runs.items():
+        for r, again in enumerate(got[1:], 1):
+            same_results(again[0], got[0][0], f"adaptive {ro} repeat {r}")
+            if again[4] != got[0][4]:
+                raise AssertionError(f"adaptive {ro} repeat {r}: migration "
+                                     f"logs differ")
+        if not all(g[5] for g in got):
+            raise AssertionError(f"adaptive {ro}: an executor ran more "
+                                 f"than one block shape")
+    same_results(runs["compact"][0][0], runs["dense"][0][0],
+                 "adaptive compact vs dense")
+    res, _, served, st, logs, _, _ = runs["dense"][0]
+    for i in range(lanes // 2):
+        if len(logs[i]) < 2:
+            raise AssertionError(f"adaptive lane {i} migrated "
+                                 f"{len(logs[i])} times: {logs[i]}")
+    for i, s_ in enumerate(streams):
+        if i != 1 and len(res[i][1]) != len(s_):
+            raise AssertionError(f"adaptive lane {i} malformed")
+    if st["shed_events_total"] <= 0 or \
+            len(res[1][1]) + st["shed_events_total"] != len(streams[1]):
+        raise AssertionError(f"lane 1 shed {st['shed_events_total']} "
+                             f"events and served {len(res[1][1])}")
+    for ro, got in runs.items():
+        walls = sorted(g[1] for g in got)
+        wall, n_rounds = walls[len(walls) // 2], got[0][3]["rounds_executed"]
+        staged = sorted(t for g in got for t in g[6]["staged"])
+        other = sorted(t for g in got for t in g[6]["other"])
+        ps = got[0][3]
+        print(f"[adaptive] {smi}: async {ro}: {served} events on {lanes} "
+              f"lanes in {windows} half-windows, wall median of "
+              f"{len(walls)} runs {wall:.4f} s (min {walls[0]:.4f}, max "
+              f"{walls[-1]:.4f}) = {served / wall:.0f} events/s; {n_rounds} "
+              f"pump rounds, {wall / n_rounds * 1e3:.4f} ms per round (min "
+              f"{walls[0] / n_rounds * 1e3:.4f}, max "
+              f"{walls[-1] / n_rounds * 1e3:.4f}); {ps['host_fetches']} "
+              f"fetches, {ps['d2h_bytes'] / max(ps['host_fetches'], 1):.0f} "
+              f"D2H bytes per fetch, overflow slots "
+              f"{ps['d2h_compact_overflow_slots']}; migrations_total "
+              f"{ps['migrations_total']}, shed_events_total "
+              f"{ps['shed_events_total']}; poll that staged a move "
+              f"median {staged[len(staged) // 2] * 1e3:.4f} ms "
+              f"({len(staged)} polls), other polls median "
+              f"{other[len(other) // 2] * 1e3:.4f} ms ({len(other)})")
+    print(f"[adaptive] migration logs (events_folded, from, to): lane 0 "
+          f"{logs[0]}, lane {lanes - 1} {logs[-1]}")
+
+    # The same pool on the CPU (plain versions) on a prefix of the feeds.
+    cpu_cfg = dataclasses.replace(cfg, device="cpu")
+    pre = adaptive_streams(lanes, cpu_windows, cfg.dvfs_cfg.half_us)
+    got = adaptive_run(cfg, pre, cpu_windows, readout="compact",
+                       drain_mode="async")
+    want = adaptive_run(cpu_cfg, pre, cpu_windows, readout="compact",
+                        drain_mode="async")
+    if got[4] != want[4]:
+        raise AssertionError("adaptive prefix: migration logs differ from "
+                             "the CPU pool's")
+    err = 0.0
+    for i in want[0]:
+        if not np.array_equal(got[0][i][1], want[0][i][1]):
+            raise AssertionError(f"adaptive prefix: lane {i} kept differs "
+                                 f"from the CPU pool")
+        err = max(err, close(got[0][i][0], want[0][i][0]))
+    for key in want[3]:
+        if key not in WALL_TIME_KEYS | {"h2d_pinned_staging"} \
+                and got[3][key] != want[3][key]:
+            raise AssertionError(f"adaptive prefix: pool_stats[{key!r}] "
+                                 f"{got[3][key]} vs {want[3][key]}")
+    print(f"[adaptive] {cpu_windows} half-windows: kept, migration logs "
+          f"({got[3]['migrations_total']} moves) and pool_stats equal to "
+          f"the CPU pool, scores max|delta| {err:.3g}")
+
+    s_, k_ = rebucket_replay(cfg, streams[0].xy, streams[0].ts, logs[0])
+    if not (np.array_equal(s_, res[0][0]) and np.array_equal(k_, res[0][1])):
+        raise AssertionError("adaptive lane 0 differs from its rebucket "
+                             "replay")
+    print(f"[adaptive] lane 0 equals a StreamingDetector rebucketed at "
+          f"{[m for m, _, _ in logs[0]]} on {device}; phase took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def profile_pool(smi, what, cfg, streams, seeds, n_events, reps=3,
@@ -1270,6 +1482,9 @@ def main() -> int:
     # --- 6. the serving path: DetectorPool on the card -----------------
     serve_launches, kept_frac = serving_phase(smi, device="cuda")
 
+    # --- 6b. the adaptive pool: live migration and per-lane knobs ------
+    adaptive_launches = adaptive_phase(smi, device="cuda")
+
     # --- 7. times at the main path's shapes ----------------------------
     # K1 as the main path calls it: in place on a state it owns, each call
     # on a fresh copy of the same state (made before the timed window), HD
@@ -1435,7 +1650,7 @@ def main() -> int:
         "K1 fused_step.cu": K1_KERNELS, "K2 harris.cu": ("harris_kernel",)})
 
     launches = {k: batch_launches[k] + serve_launches[k]
-                for k in serve_launches}
+                + adaptive_launches[k] for k in serve_launches}
     kernels = [
         {"name": "fused_step", "route": "cuda",
          "source": "src/repro_torch/csrc/fused_step.cu",

@@ -11,15 +11,20 @@ pool, on the card.
               or by a reader thread on its own CUDA stream (``"async"``),
               with dense or compact (K3 records) readout and a pipelined
               stage -> dispatch pump.
-  scheduler — placement policy; the port serves ``policy="static"``.
+  scheduler — placement policy: ``"static"``, or ``"adaptive"`` (live
+              bucket migration from the measured event rate).
   pool      — ``DetectorPool``: the façade wiring the two together.
 """
 from repro_torch.serve.pool import DetectorPool  # noqa: F401
 from repro_torch.serve.runtime import PoolRuntime  # noqa: F401
+from repro_torch.serve.scheduler import (  # noqa: F401
+    AdaptiveScheduler,
+    StaticScheduler,
+)
 from repro_torch.serve.streaming import (  # noqa: F401
     StreamingDetector,
     session_base_us,
 )
 
-__all__ = ["DetectorPool", "PoolRuntime", "StreamingDetector",
-           "session_base_us"]
+__all__ = ["DetectorPool", "PoolRuntime", "StaticScheduler",
+           "AdaptiveScheduler", "StreamingDetector", "session_base_us"]

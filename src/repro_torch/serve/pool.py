@@ -4,15 +4,19 @@ wired to a placement scheduler.
 ``DetectorPool`` is a thin façade over ``serve.runtime.PoolRuntime`` (the
 data plane: executors, device rings, the reader thread, lane buffers) and
 a ``serve.scheduler`` policy (which bucket a lane lands in, which order
-buckets pump in).  The port serves ``policy="static"``: a lane stays in
-the bucket chosen at ``connect()`` for life and buckets pump in ascending
-order.  The reference's adaptive, ladder and pack policies are refused
-until they are ported (``ROADMAP.md``, M8).
+buckets pump in).  ``policy="static"`` keeps a lane in the bucket chosen
+at ``connect()`` for life and pumps buckets in ascending order;
+``policy="adaptive"`` moves a lane between buckets live as its measured
+event rate changes (each ``poll`` / ``flush`` is one rate observation)
+and pumps the most backlogged bucket first.  ``set_lane_control`` moves a
+lane's degradation knobs.  The reference's ladder and pack policies are
+refused until they are ported (``ROADMAP.md``, M8b).
 
 A lane's outputs equal a standalone ``StreamingDetector``'s and
 ``run_pipeline``'s on that lane's full stream, whatever the interleaving,
-K-blocking, drain mode or readout.  Only fixed-Vdd and online-DVFS configs
-are servable.
+K-blocking, drain mode or readout; a lane that migrated equals a
+``StreamingDetector`` that ``rebucket()``s at the lane's logged
+boundaries.  Only fixed-Vdd and online-DVFS configs are servable.
 """
 from __future__ import annotations
 
@@ -36,6 +40,12 @@ class DetectorPool:
     ``chunk/cap`` times fewer bytes; ``compact_cap`` overrides the
     ``chunk // 8`` default, and a slot-lane that overflows it falls back to
     its dense row.  Results equal ``"dense"``'s.  Runs on ``cfg.device``.
+
+    ``migrate_patience`` and ``migrate_margin`` tune ``policy="adaptive"``
+    (rate windows a move must be wanted for; the headroom a move down
+    needs); ``scheduler=`` passes a policy object instead, whose buckets
+    must be the pool's.  ``ladder=`` is accepted for the reference's
+    signature and refused unless ``None``.
     """
 
     def __init__(self, cfg, capacity: int, *, seed: int = 0,
@@ -49,7 +59,15 @@ class DetectorPool:
                  readout: str = "dense",
                  compact_cap: Optional[int] = None,
                  policy: str = "static",
+                 migrate_patience: int = 3,
+                 migrate_margin: float = 0.9,
+                 ladder: object = None,
+                 scheduler: Optional[scheduler_mod.StaticScheduler] = None,
                  metrics: Optional[obs_mod.MetricsRegistry] = None):
+        if ladder is not None:
+            raise NotImplementedError(
+                "ladder= configures the degradation ladder, which is not "
+                "ported yet (ROADMAP item M8b)")
         self._rt = PoolRuntime(
             cfg, capacity, seed=seed, ring_rounds=ring_rounds,
             buckets=buckets, on_overflow=on_overflow, shard=shard,
@@ -58,16 +76,29 @@ class DetectorPool:
             compact_cap=compact_cap, metrics=metrics,
         )
         try:
-            self._sched = scheduler_mod.make_scheduler(policy,
-                                                       self._rt.buckets)
-        except NotImplementedError:
+            if scheduler is not None:
+                if tuple(scheduler.buckets) != self._rt.buckets:
+                    raise ValueError(
+                        f"scheduler buckets {scheduler.buckets} do not "
+                        f"match pool buckets {self._rt.buckets}")
+                self._sched = scheduler
+            else:
+                self._sched = scheduler_mod.make_scheduler(
+                    policy, self._rt.buckets, patience=migrate_patience,
+                    down_margin=migrate_margin)
+        except BaseException:
             self._rt.close()          # stop the reader thread, then refuse
             raise
         self._sched.bind_metrics(self._rt.metrics)
         self._cfg = cfg
+        # Moves decided by non-blocking polls: staging seals and drains
+        # (it may wait on the reader), which poll(wait=False) must never
+        # do, so the decision parks here and is staged at the next pump or
+        # flush.  Guarded by the runtime lock.
+        self._deferred: dict[int, int] = {}
 
-    # Data-plane attributes (``_states``, ``_rings``, ``_phys``,
-    # ``_reader``, ...) resolve on the runtime.
+    # Data-plane attributes and verbs (``_states``, ``_rings``,
+    # ``set_lane_control``, ``vdd_top``, ...) resolve on the runtime.
     def __getattr__(self, name):
         return getattr(object.__getattribute__(self, "_rt"), name)
 
@@ -93,7 +124,8 @@ class DetectorPool:
         """Claim a free lane for a new camera session; returns the lane id.
         ``chunk`` requests a per-session chunk size: the lane lands in the
         smallest configured bucket that fits (default ``cfg.chunk``).
-        ``qos`` is carried as a label."""
+        ``qos`` is carried as a label.  Under ``policy="adaptive"`` the
+        placement is only the starting point."""
         want = self._cfg.chunk if chunk is None else int(chunk)
         bucket = self._sched.place(want)
         if bucket is None:
@@ -101,16 +133,22 @@ class DetectorPool:
                 f"no chunk bucket fits {want} (buckets: {self._rt.buckets})"
             )
         lane = self._rt.connect(bucket, seed, qos=qos)
-        self._sched.forget(lane)
+        self._forget(lane)
         return lane
 
     def disconnect(self, lane: int) -> dict:
         """Release a lane; returns its final accounting stats.  Undrained
-        ring slots are drained first, so the slot's next tenant inherits
-        nothing."""
+        ring slots are drained first and a staged or parked move is
+        dropped, so the slot's next tenant inherits nothing."""
         out = self._rt.disconnect(lane)
-        self._sched.forget(lane)
+        self._forget(lane)
         return out
+
+    def _forget(self, lane: int) -> None:
+        """A recycled slot starts with no rate streak and no parked move."""
+        self._sched.forget(lane)
+        with self._rt._lock:
+            self._deferred.pop(lane, None)
 
     def warmup(self, xy, ts_us) -> None:
         """Exercise every executor shape of the default bucket outside any
@@ -143,18 +181,75 @@ class DetectorPool:
 
     def pump_rounds(self, max_rounds: Optional[int] = None) -> int:
         """Like ``pump`` but stops after at most ``max_rounds`` rounds
-        (``None`` = run until dry)."""
-        return self._rt.pump_pass(self._sched.order({}), max_rounds)
+        (``None`` = run until dry).  Moves parked by non-blocking polls
+        are staged first and staged moves apply before any round."""
+        self._stage_deferred()
+        return self._rt.pump_pass(self._order(), max_rounds)
 
     def flush(self, lane: int):
         """Drain the lane's full chunks, then its padded partial tail, and
-        return everything not yet polled."""
-        return self._rt.flush(lane, self._sched.order({}))
+        return everything not yet polled.  One rate observation, like
+        ``poll``."""
+        self._stage_deferred()
+        out = self._rt.flush(lane, self._order())
+        self._observe(lane)
+        return out
 
     def poll(self, lane: int, *, wait: bool = True):
         """Drain the lane's accumulated (scores, kept), in stream order
-        (see ``PoolRuntime.poll``)."""
-        return self._rt.poll(lane, wait=wait)
+        (see ``PoolRuntime.poll``).  Each poll is one rate observation:
+        under ``policy="adaptive"`` a lane whose rate has outgrown (or
+        undershot) its bucket for ``migrate_patience`` rate windows has
+        its move staged here, or, with ``wait=False``, parked until the
+        next pump or flush; the move applies at the next pump pass."""
+        out = self._rt.poll(lane, wait=wait)
+        self._observe(lane, allow_stage=wait)
+        return out
+
+    def _order(self) -> tuple:
+        """The scheduler's bucket pump order.  The backlog walk holds the
+        runtime lock over every active lane, so it runs only for a policy
+        that reads it."""
+        backlog = (self._rt.bucket_backlog_rounds()
+                   if self._sched.needs_backlog else {})
+        return self._sched.order(backlog)
+
+    def _observe(self, lane: int, *, allow_stage: bool = True) -> None:
+        """Give the scheduler one rate sample for ``lane`` and stage the
+        move it decides, or park it when the caller must not block.
+        Serialized under the runtime lock so concurrent pollers cannot
+        interleave the scheduler's state."""
+        if not self._sched.needs_observation:
+            return
+        with self._rt._lock:
+            if not self._rt._active[lane]:
+                return                      # retired by a concurrent caller
+            ln = self._rt._lanes[lane]
+            target = self._sched.observe(
+                lane, ln.bucket, self._rt.lane_halfwin_rate(lane),
+                win=ln.r_win,
+            )
+            if target is None or target == ln.bucket:
+                return
+            if allow_stage:
+                self._deferred.pop(lane, None)
+                self._rt.stage_migration(lane, target)
+            else:
+                self._deferred[lane] = target
+
+    def _stage_deferred(self) -> None:
+        """Stage the moves parked by non-blocking polls (a pump or flush
+        may block anyway)."""
+        if not self._deferred:
+            return
+        with self._rt._lock:
+            for lane, target in list(self._deferred.items()):
+                # pop, not del: a concurrent disconnect can clear the entry
+                # while an earlier staging waits on the pump token
+                self._deferred.pop(lane, None)
+                if (self._rt._active[lane]
+                        and self._rt._lanes[lane].bucket != target):
+                    self._rt.stage_migration(lane, target)
 
     # -- introspection ------------------------------------------------------
 

@@ -53,14 +53,27 @@ are data, never a new executor.  Per lane the runtime keeps what a
 books, result queue), so a lane's results equal a standalone session's and
 ``run_pipeline``'s on its stream.
 
+**Live migration.**  ``stage_migration`` seals and drains the lane's
+bucket, so every round it has executed reaches its result queue in
+stream order, and records the target; the move applies at the start of
+the next pump pass or flush, under the pump token, so no block staged
+ahead can still hold the lane's rows for the old bucket.  The lane-stacked
+state has no chunk axis and is stepped in place, so a move touches no
+device memory: the lane's rows stay where they are, and its host re-chunk
+buffer re-chunks at the new size from the next collect.
+
+**Knob writes.**  ``set_lane_control`` moves a lane's ``lut_every``,
+``vdd_cap`` and ``shed`` (``DetectorState.ctrl``, host arrays read by the
+step), so a write launches nothing.  A shedding lane keeps at most one
+ring of rounds in its re-chunk buffer, dropping the oldest events.
+
 **Thread safety.**  One re-entrant lock guards all mutable state; the
 reader takes it only to distribute and recycle, never across a transfer.
-A pump token serializes whole pump passes.
+A pump token serializes whole pump passes, migrations and knob writes.
 
-Not ported yet (``ROADMAP.md``, M8): live bucket migration, the knob
-writes, and the per-pump observe/decide loop; under the static policy the
-stats keys of those mechanisms are truthful zeros.  The card is one
-device: there is no lane mesh.
+Not ported yet (``ROADMAP.md``, M8b): the per-pump observe/decide loop
+and its coalesced knob writes; their stats counters are truthful zeros.
+The card is one device: there is no lane mesh.
 """
 from __future__ import annotations
 
@@ -97,8 +110,8 @@ class _Lane:
 
     __slots__ = ("bucket", "buf_xy", "buf_ts", "base", "results", "n_events",
                  "n_chunks", "kept_total", "energy_pj", "latency_ns",
-                 "vdd_trace", "events_folded", "r_win", "r_cur", "r_p1",
-                 "r_p2", "qos")
+                 "vdd_trace", "events_folded", "migrations", "migration_log",
+                 "shed_events", "r_win", "r_cur", "r_p1", "r_p2", "qos")
 
     def __init__(self, bucket: int, *, qos: str = "standard"):
         self.bucket = bucket
@@ -114,6 +127,12 @@ class _Lane:
         self.latency_ns = 0.0
         self.vdd_trace: list[float] = []
         self.events_folded = 0          # events consumed by executed rounds
+        self.migrations = 0             # bucket moves applied to this lane
+        # (events_folded, from_bucket, to_bucket) per applied move: a
+        # StreamingDetector fed the same stream and rebucket()ed at each
+        # logged boundary reproduces this lane's outputs.
+        self.migration_log: list[tuple[int, int, int]] = []
+        self.shed_events = 0            # oldest events dropped while shedding
         # Host twin of the 3-counter DVFS rate estimator (half-window
         # binning of *fed* timestamps; same rotation the device step does).
         self.r_win = 0
@@ -258,6 +277,7 @@ class PoolRuntime:
         self._half_us = int(cfg.dvfs_cfg.half_us)
         self._online = bool(cfg.dvfs and cfg.dvfs_online)
         self._tab = dvfs_mod.op_point_table(cfg.dvfs_cfg)
+        self._vdd_top = state_mod._vdd_top(cfg)
         self._phys = capacity
         vdd = None if self._online else np.full((1,), cfg.vdd, np.float64)
         self._riders = tuple(
@@ -276,6 +296,7 @@ class PoolRuntime:
             device=self._device)
         self._active = np.zeros((self._phys,), bool)
         self._lanes: list[Optional[_Lane]] = [None] * self._phys
+        self._staged: dict[int, int] = {}     # lane -> target bucket
 
         self._stager = sharding_mod.HostStager(self._device,
                                                depth=self._pipeline_depth)
@@ -318,7 +339,7 @@ class PoolRuntime:
     def _declare_metrics(self, buckets: tuple) -> None:
         """Declare every runtime witness on the registry and bind its
         handle(s), as the reference does; the counters of mechanisms not
-        ported yet (knob writes, observations, migrations) stay at 0."""
+        ported yet (coalesced knob writes, observations) stay at 0."""
         reg = self._metrics
         p, bk = POOL_STATS, POOL_BUCKET_STATS
 
@@ -434,7 +455,8 @@ class PoolRuntime:
                 qos: str = "standard") -> int:
         """Claim a free lane in ``bucket`` (a configured chunk-size bucket)
         for a new camera session; returns the lane id.  The lane starts
-        from a fresh state at the config's neutral knobs."""
+        from a fresh state at the config's neutral knobs (``detector_init``
+        sets its ``ctrl`` entries)."""
         with self._lock:
             self._check_open()
             if bucket not in self._buckets:
@@ -458,7 +480,8 @@ class PoolRuntime:
         """Release a lane; returns its final accounting stats.  Undrained
         ring slots referencing the lane are drained first (waiting for the
         reader in async mode), so the stats are complete and a later
-        session reusing the slot inherits nothing."""
+        session reusing the slot inherits nothing, a staged migration
+        included."""
         with self._lock:
             self._check_open()
             self._check_lane(lane)
@@ -467,6 +490,7 @@ class PoolRuntime:
             self._acquire_pump()
             try:
                 self._check_lane(lane)
+                self._staged.pop(lane, None)
                 self._drain_bucket(self._lanes[lane].bucket)
                 out, dev = self._lane_stats_locked(lane)
                 self._active[lane] = False
@@ -532,7 +556,10 @@ class PoolRuntime:
 
     def feed(self, lane: int, xy: np.ndarray, ts_us: np.ndarray) -> None:
         """Buffer a slab for one session (any length, time-sorted) and fold
-        its timestamps into the lane's host rate-estimator twin."""
+        its timestamps into the lane's host rate-estimator twin.  A
+        shedding lane then drops its oldest buffered events down to one
+        ring of rounds (the rate twin still counts them, so recovery sees
+        the true arrival rate)."""
         with self._lock:
             self._check_open()
             self._check_lane(lane)
@@ -549,12 +576,24 @@ class PoolRuntime:
             ln.buf_ts = np.concatenate([ln.buf_ts, ts], 0)
             ln.n_events += int(ts.size)
             ln.rate_update(ts, self._half_us)
+            if self._states.ctrl.shed[lane]:
+                self._shed_buffer(ln)
+
+    def _shed_buffer(self, ln: _Lane) -> None:
+        """Drop-oldest a shedding lane's re-chunk buffer down to one ring
+        of rounds (caller holds the lock)."""
+        excess = int(ln.buf_ts.size) - self._ring_rounds * ln.bucket
+        if excess > 0:
+            ln.buf_xy = ln.buf_xy[excess:]
+            ln.buf_ts = ln.buf_ts[excess:]
+            ln.shed_events += excess
 
     def pump_pass(self, order: tuple,
                   max_rounds: Optional[int] = None) -> int:
-        """One serialized pump pass: fold every buffered full chunk through
-        the bucket executors, visiting buckets in ``order`` (each pumps
-        until dry or the round budget runs out).  Returns rounds executed.
+        """One serialized pump pass: apply the staged migrations, then fold
+        every buffered full chunk through the bucket executors, visiting
+        buckets in ``order`` (each pumps until dry or the round budget runs
+        out).  Returns rounds executed.
         Results stay in the device rings until ``poll``/``flush`` (or a
         backpressure drain under ``"drain"``).  Blocks are staged and
         dispatched through one stage-ahead deque, flushed before the pass
@@ -563,6 +602,7 @@ class PoolRuntime:
             self._check_open()
             self._acquire_pump()
             try:
+                self._apply_staged_locked()
                 total = 0
                 q: collections.deque = collections.deque()
                 self._pass_dispatches = 0
@@ -581,14 +621,15 @@ class PoolRuntime:
                 self._release_pump()
 
     def flush(self, lane: int, order: tuple) -> tuple[np.ndarray, np.ndarray]:
-        """Drain the lane's full chunks, then its padded partial tail, and
-        return everything not yet polled."""
+        """Apply the staged migrations, drain the lane's full chunks, then
+        its padded partial tail, and return everything not yet polled."""
         with self._lock:
             self._check_open()
             self._check_lane(lane)
             self._acquire_pump()
             try:
                 self._check_lane(lane)
+                self._apply_staged_locked()
                 q: collections.deque = collections.deque()
                 self._pass_dispatches = 0
                 try:
@@ -641,7 +682,133 @@ class PoolRuntime:
             ln.results.clear()
             return scores, kept
 
+    # -- migration ------------------------------------------------------------
+
+    def stage_migration(self, lane: int, new_bucket: int) -> None:
+        """Stage a live move of ``lane`` to ``new_bucket``: seal and drain
+        the lane's bucket (every round it executed reaches its result
+        queue, in order) and record the target.  The move applies at the
+        start of the next pump pass or flush, both of which apply before
+        they collect a round, under the pump token.  Re-staging a lane
+        replaces its pending move; staging its current bucket cancels it.
+        """
+        with self._lock:
+            self._check_open()
+            self._check_lane(lane)
+            if new_bucket not in self._buckets:
+                raise ValueError(
+                    f"{new_bucket} is not a configured bucket "
+                    f"({self._buckets})"
+                )
+            ln = self._lanes[lane]
+            if new_bucket == ln.bucket:
+                self._staged.pop(lane, None)
+                return
+            self._acquire_pump()
+            try:
+                # The token wait released the lock: if the lane was retired
+                # meanwhile (its slot perhaps reused), the decision belonged
+                # to the old session and is dropped.
+                if self._lanes[lane] is not ln or not self._active[lane]:
+                    return
+                if new_bucket == ln.bucket:   # a pass applied a move
+                    self._staged.pop(lane, None)
+                    return
+                self._drain_bucket(ln.bucket)
+                self._staged[lane] = new_bucket
+            finally:
+                self._release_pump()
+
+    def staged_migrations(self) -> dict:
+        """Pending (staged, not yet applied) moves: ``{lane: bucket}``."""
+        with self._lock:
+            return dict(self._staged)
+
+    def _apply_staged_locked(self) -> None:
+        """Move every staged lane to its target bucket (caller holds the
+        lock and the pump token, before any round is collected).  The
+        lane's state stays in place; the old bucket is drained once more
+        so its results stay in stream order."""
+        for lane in sorted(self._staged):
+            new_bucket = self._staged.pop(lane)
+            ln = self._lanes[lane]
+            if ln is None or not self._active[lane]:
+                continue                      # retired between stage and apply
+            old = ln.bucket
+            self._drain_bucket(old)
+            ln.bucket = new_bucket
+            ln.migrations += 1
+            ln.migration_log.append((ln.events_folded, old, new_bucket))
+            self._m_migrations.inc()
+
+    # -- knob writes ----------------------------------------------------------
+
+    def set_lane_control(self, lane: int, *,
+                         lut_every: Optional[int] = None,
+                         vdd_cap: Optional[int] = None,
+                         shed: Optional[bool] = None) -> None:
+        """Set a lane's degradation knobs under the pump token, so a write
+        cannot fall between a pass's rounds.  ``lut_every`` is clamped to
+        >= 1 and ``vdd_cap`` to ``[0, vdd_top]``; unset knobs keep their
+        value.  Entering ``shed`` drops the oldest buffered events down to
+        one ring of rounds at once.  The ``ctrl`` leaves are replaced by
+        new arrays, so a ``ctrl`` read earlier keeps its values."""
+        with self._lock:
+            self._check_open()
+            self._check_lane(lane)
+            self._acquire_pump()
+            try:
+                self._check_lane(lane)    # re-validate after the token wait
+                c = self._states.ctrl
+                was_shed = bool(c.shed[lane])
+                want = (
+                    c.lut_every[lane] if lut_every is None
+                    else max(1, int(lut_every)),
+                    c.vdd_cap[lane] if vdd_cap is None
+                    else max(0, min(int(vdd_cap), self._vdd_top)),
+                    was_shed if shed is None else bool(shed),
+                )
+                leaves = []
+                for leaf, value in zip(c, want):
+                    leaf = leaf.copy()
+                    leaf[lane] = value
+                    leaves.append(leaf)
+                self._states = self._states._replace(
+                    ctrl=state_mod.ControlState(*leaves))
+                if want[2] and not was_shed:
+                    self._shed_buffer(self._lanes[lane])
+            finally:
+                self._release_pump()
+
+    @property
+    def vdd_top(self) -> int:
+        """Highest DVFS operating-point index a knob may select (0 in
+        fixed-Vdd mode, where the cap is inert)."""
+        return self._vdd_top
+
     # -- observability -------------------------------------------------------
+
+    def lane_halfwin_rate(self, lane: int) -> float:
+        """Observed events per DVFS half-window for one lane, from the host
+        rate twin (no device sync): the adaptive policy's migration
+        metric."""
+        with self._lock:
+            self._check_lane(lane)
+            ln = self._lanes[lane]
+            eps = state_mod.rate_estimate_eps(
+                ln.r_p1, ln.r_p2, self._cfg.dvfs_cfg
+            )
+            return eps * self._half_us * 1e-6
+
+    def bucket_backlog_rounds(self) -> dict:
+        """Ready but unpumped rounds per bucket (full chunks waiting in the
+        lanes' re-chunk buffers): the adaptive pump order's input."""
+        with self._lock:
+            out = {b: 0 for b in self._buckets}
+            for lane in self.active_lanes:
+                ln = self._lanes[lane]
+                out[ln.bucket] += int(ln.buf_ts.size) // ln.bucket
+            return out
 
     def stats(self, lane: int) -> dict:
         """Lane accounting: host float64 books (drained rounds only) plus
@@ -678,9 +845,9 @@ class PoolRuntime:
             "events_per_s_est": state_mod.rate_estimate_eps(
                 ln.r_p1, ln.r_p2, self._cfg.dvfs_cfg
             ),
-            "migrations": 0,
-            "migration_log": [],
-            "migration_staged": False,
+            "migrations": ln.migrations,
+            "migration_log": list(ln.migration_log),
+            "migration_staged": lane in self._staged,
             "ring_capacity": self._ring_rounds,
             "ring_rounds_buffered": self._m_ring_count[b].value(),
             "ring_sealed_rounds": self._m_sealed[b].value(),
@@ -696,7 +863,7 @@ class PoolRuntime:
             "ctrl_lut_every": int(s.ctrl.lut_every[lane]),
             "ctrl_vdd_cap": int(s.ctrl.vdd_cap[lane]),
             "ctrl_shed": bool(s.ctrl.shed[lane]),
-            "shed_events": 0,
+            "shed_events": ln.shed_events,
         }
         return out, dev
 
@@ -757,7 +924,7 @@ class PoolRuntime:
                     h.value() for h in self._m_sealed.values()
                 ),
                 "migrations_total": self._m_migrations.value(),
-                "migrations_staged": 0,
+                "migrations_staged": len(self._staged),
                 "h2d_event_slots": h2d_slots,
                 "h2d_valid_events": h2d_valid,
                 "h2d_pinned_staging": self._stager.pinned,
@@ -770,7 +937,9 @@ class PoolRuntime:
                 "d2h_compact_overflow_slots": self._m_d2h_overflow.value(),
                 "dropped_rounds_total": dropped_dev + dropped_pred,
                 "dropped_rounds_confirmed": dropped_dev,
-                "shed_events_total": 0,
+                "shed_events_total": sum(
+                    ln.shed_events for ln in self._lanes if ln is not None
+                ),
                 "buckets": {
                     b: {
                         "lanes": sum(

@@ -2,17 +2,25 @@
 observe -> decide -> actuate.
 
 The data plane (``serve.runtime.PoolRuntime``) can run any lane in any
-chunk-size bucket; deciding which is policy, expressed here.  This slice
+chunk-size bucket; deciding which is policy, expressed here.  The module
 carries the contract's records (``LaneObservation``, ``Observation``,
-``Action``) and the one policy the port serves:
+``Action``) and the two policies the port serves:
 
-  ``StaticScheduler`` — a lane lands in the smallest bucket that fits its
-                        ``connect(chunk=)`` request and stays there for
-                        life; buckets pump in ascending size order; no
-                        observation, no actions.
+  ``StaticScheduler``   — a lane lands in the smallest bucket that fits
+                          its ``connect(chunk=)`` request and stays there
+                          for life; buckets pump in ascending size order;
+                          no observation, no actions.
+  ``AdaptiveScheduler`` — rate-aware placement: each drain observation
+                          compares the lane's events per DVFS half-window
+                          (the host twin of the in-step rate estimator)
+                          with its bucket, and after ``patience`` rate
+                          windows beyond the hysteresis thresholds asks
+                          the runtime to migrate the lane live; buckets
+                          pump starved first.
 
-The reference's adaptive, ladder and pack policies are not ported yet
-(``ROADMAP.md``, item M8): ``make_scheduler`` refuses them.
+The reference's ladder and pack policies, and the per-pump ``decide``
+loop they run on, are not ported yet (``ROADMAP.md``, item M8b):
+``make_scheduler`` refuses them.
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ __all__ = [
     "Observation",
     "Action",
     "StaticScheduler",
+    "AdaptiveScheduler",
     "make_scheduler",
 ]
 
@@ -146,16 +155,110 @@ class StaticScheduler:
         return {}
 
 
-def make_scheduler(policy: str, buckets: tuple, **_policy_knobs
-                   ) -> StaticScheduler:
-    """The scheduler for ``policy``.  Only ``"static"`` is ported; the
-    keyword knobs of the other policies are accepted and unused."""
+class AdaptiveScheduler(StaticScheduler):
+    """Rate-aware placement: hysteresis and patience around the fit rule.
+
+    ``observe`` consumes the lane's events per half-window (one
+    half-window is the DVFS controller's re-budgeting period).  A lane
+    whose estimate exceeds ``bucket * up_margin`` wants the smallest
+    bucket that fits; one whose estimate fits a smaller bucket times
+    ``down_margin`` wants that.  The want must repeat for ``patience``
+    consecutive rate windows before it is returned.
+    """
+
+    policy = "adaptive"
+    needs_backlog = True
+    needs_observation = True
+
+    def __init__(self, buckets: tuple, *, patience: int = 3,
+                 down_margin: float = 0.9, up_margin: float = 1.0):
+        super().__init__(buckets)
+        if patience < 1:
+            raise ValueError("patience must be >= 1")
+        if not (0.0 < down_margin <= 1.0):
+            raise ValueError("down_margin must be in (0, 1]")
+        if up_margin <= 0.0:
+            raise ValueError("up_margin must be > 0")
+        self.patience = int(patience)
+        self.down_margin = float(down_margin)
+        self.up_margin = float(up_margin)
+        # lane -> (wanted bucket, windows wanting it, last counted window)
+        self._streaks: dict[int, tuple[int, int, Optional[int]]] = {}
+
+    def _fit(self, w: float) -> int:
+        """Smallest bucket >= w; the largest when nothing fits."""
+        return next((b for b in self._buckets if b >= w), self._buckets[-1])
+
+    def desired(self, bucket: int, events_per_halfwin: float) -> int:
+        """Hysteresis target for a lane in ``bucket``: up the moment the
+        rate outgrows the bucket; down only with ``down_margin`` headroom,
+        to the deepest tier that has it (so a lane parked several tiers
+        above its rate still descends partway when the bottom tier lacks
+        the margin); otherwise stay."""
+        w = float(events_per_halfwin)
+        if w > bucket * self.up_margin:
+            return max(self._fit(w), bucket)
+        target = self._fit(w)
+        if target < bucket:
+            for b in self._buckets:           # ascending: deepest first
+                if b >= bucket:
+                    break
+                if b >= target and w <= b * self.down_margin:
+                    return b
+        return bucket
+
+    def order(self, backlog_rounds: dict) -> tuple:
+        """Starved-first pump order: the buckets with the most ready
+        rounds waiting in lane buffers fold first, so a round budget
+        reaches the lanes that need it; ties break ascending.  With no
+        budget every bucket pumps until dry, so the order changes latency,
+        never results."""
+        return tuple(sorted(
+            self._buckets,
+            key=lambda b: (-int(backlog_rounds.get(b, 0)), b),
+        ))
+
+    def observe(self, lane: int, bucket: int, events_per_halfwin: float,
+                win: Optional[int] = None) -> Optional[int]:
+        """One drain observation.  ``win`` is the lane's rate-estimator
+        window cursor: observations repeating the same window collapse to
+        one, so patience counts rate windows, not polls.  ``win=None``
+        counts every call."""
+        want = self.desired(bucket, events_per_halfwin)
+        if want == bucket:
+            self._streaks.pop(lane, None)
+            return None
+        prev_want, n, last_win = self._streaks.get(lane, (want, 0, None))
+        if prev_want == want and win is not None and last_win == win:
+            return None                     # same window: already counted
+        n = n + 1 if prev_want == want else 1
+        if n >= self.patience:
+            self._streaks.pop(lane, None)
+            return want
+        self._streaks[lane] = (want, n, win)
+        return None
+
+    def forget(self, lane: int) -> None:
+        self._streaks.pop(lane, None)
+
+
+def make_scheduler(policy: str, buckets: tuple, *, patience: int = 3,
+                   down_margin: float = 0.9,
+                   up_margin: float = 1.0) -> StaticScheduler:
+    """The scheduler for ``policy``: ``"static"`` or ``"adaptive"`` (with
+    its patience and margins).  ``"ladder"`` and ``"pack"`` are refused
+    until they are ported."""
     if policy == "static":
         return StaticScheduler(buckets)
-    if policy in ("adaptive", "ladder", "pack"):
+    if policy == "adaptive":
+        return AdaptiveScheduler(buckets, patience=patience,
+                                 down_margin=down_margin,
+                                 up_margin=up_margin)
+    if policy in ("ladder", "pack"):
         raise NotImplementedError(
-            f"policy {policy!r} is not ported yet (ROADMAP item M8: "
-            f"adaptive, ladder and pack policies); use policy='static'")
+            f"policy {policy!r} is not ported yet (ROADMAP item M8b: the "
+            f"ladder and pack policies and their per-pump decide loop); "
+            f"use policy='static' or 'adaptive'")
     raise ValueError(
         f"policy must be 'static', 'adaptive', 'ladder', or 'pack', "
         f"got {policy!r}"

@@ -427,3 +427,63 @@ def test_pool_round_pushes_with_one_launch(cuda, readout):
     ops.reset_launch_counts()
     _, stats = _serve_two_lanes("cuda", readout=readout)
     assert ops.LAUNCHES["compact"] == stats["rounds_executed"] > 0
+
+
+def _serve_adaptive(device, readout):
+    """Three online-DVFS lanes with BER under ``policy="adaptive"`` on
+    ramps that move them between buckets, one shedding and one capped."""
+    cfg = pipeline.PipelineConfig(
+        height=180, width=240, chunk=128, lut_every_chunks=2, dvfs=True,
+        dvfs_online=True, inject_ber=True, device=device)
+    half = cfg.dvfs_cfg.half_us
+    rates = ([100] * 3 + [1500] * 5 + [400] * 4,
+             [400] * 4 + [100] * 5 + [1500] * 3,
+             [100] * 12)
+    streams = [synthetic.ramp_stream(r, half, seed=s)
+               for s, r in enumerate(rates)]
+    pool = DetectorPool(cfg, 3, ring_rounds=4, buckets=(128, 512, 2048),
+                        policy="adaptive", migrate_patience=2,
+                        readout=readout)
+    lanes = [pool.connect(seed=s, chunk=128) for s in range(3)]
+    pool.set_lane_control(lanes[1], lut_every=3, shed=True)
+    pool.set_lane_control(lanes[2], vdd_cap=0)
+    outs = {i: [] for i in range(3)}
+    for j in range(12):
+        for i, lane in enumerate(lanes):
+            m = (streams[i].ts // half) == j
+            pool.feed(lane, streams[i].xy[m], streams[i].ts[m])
+        pool.pump()
+        for i, lane in enumerate(lanes):
+            outs[i].append(pool.poll(lane))
+    for i, lane in enumerate(lanes):
+        outs[i].append(pool.flush(lane))
+    logs = [pool.stats(lane)["migration_log"] for lane in lanes]
+    stats = pool.pool_stats()
+    pool.close()
+    return ({i: [np.concatenate(x) for x in zip(*o)] for i, o in
+             outs.items()}, logs, stats)
+
+
+@pytest.mark.parametrize("readout", ["dense", "compact"])
+def test_adaptive_pool_on_cuda_equals_cpu(cuda, readout):
+    """The adaptive pool on the card equals the same pool on the CPU:
+    migration logs, kept masks and stats exact, scores within
+    ``1e-5 * max|R|``, K1-K3 launched, one ring push per round."""
+    ops.reset_launch_counts()
+    got, glogs, gstats = _serve_adaptive("cuda", readout)
+    assert min(ops.LAUNCHES[k] for k in ("fused_step", "harris",
+                                         "compact")) > 0, ops.LAUNCHES
+    assert ops.LAUNCHES["compact"] == gstats["rounds_executed"]
+    want, wlogs, wstats = _serve_adaptive("cpu", readout)
+    assert glogs == wlogs and len(glogs[0]) >= 2 and len(glogs[1]) >= 2
+    for i in want:
+        np.testing.assert_array_equal(got[i][1], want[i][1])
+        fin = np.isfinite(want[i][0])
+        np.testing.assert_array_equal(np.isfinite(got[i][0]), fin)
+        if fin.any():
+            err = np.abs(got[i][0][fin] - want[i][0][fin]).max()
+            assert err <= REL * np.abs(want[i][0][fin]).max()
+    assert gstats["shed_events_total"] > 0
+    for key in wstats:
+        if key not in WALL_TIME_KEYS and key != "h2d_pinned_staging":
+            assert gstats[key] == wstats[key], key

@@ -252,3 +252,52 @@ def test_pool_warmup_leaves_lanes_and_next_tenant():
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g[0], w[0])
         np.testing.assert_array_equal(g[1], w[1])
+
+
+def test_pool_migration_and_knob_write_alias_nothing():
+    """A knob write replaces the ``ctrl`` leaves (a view read before keeps
+    its values), shedding drops events from the pool's own buffer (the
+    caller's slabs stay as fed), ``stats()`` hands out a copy of the
+    migration log, results polled before a move keep their values, and
+    applying a move writes no lane's surfaces."""
+    cfg = _cfg("dvfs_online")
+    xy, ts = _stream(3, n=12 * CHUNK)
+    fed = (xy.copy(), ts.copy())
+    pool = DetectorPool(cfg, 2, ring_rounds=2, buckets=(CHUNK, 4 * CHUNK),
+                        policy="adaptive")
+    try:
+        lane = pool.connect(seed=1, chunk=CHUNK)
+        other = pool.connect(seed=2, chunk=CHUNK)
+        held = pool._states.ctrl
+        held_values = [leaf.copy() for leaf in held]
+        pool.set_lane_control(lane, shed=True, lut_every=3, vdd_cap=1)
+        for leaf, value in zip(held, held_values):
+            np.testing.assert_array_equal(leaf, value)
+        assert int(pool._states.ctrl.lut_every[lane]) == 3
+        pool.feed(lane, xy, ts)                       # sheds the oldest
+        pool.feed(other, xy[:3 * CHUNK], ts[:3 * CHUNK])
+        assert pool.stats(lane)["shed_events"] > 0
+        np.testing.assert_array_equal(xy, fed[0])
+        np.testing.assert_array_equal(ts, fed[1])
+        pool.pump()
+        polled = pool.poll(lane)
+        polled_values = (polled[0].copy(), polled[1].copy())
+
+        pool._rt.stage_migration(lane, 4 * CHUNK)
+        s = pool._states
+        before = [t.clone() for t in (s.surface, s.sae, s.lut)]
+        pool.pump()                                   # applies; no rounds
+        st = pool.stats(lane)
+        assert st["migrations"] == 1 and st["bucket"] == 4 * CHUNK
+        for b, a in zip(before, (s.surface, s.sae, s.lut)):
+            assert torch.equal(b, a)
+        st["migration_log"].append((0, 0, 0))
+        assert pool.stats(lane)["migration_log"] == [
+            (st["migration_log"][0])]
+        pool.feed(lane, xy[:8 * CHUNK], ts[:8 * CHUNK] + 60_000)
+        pool.pump()
+        pool.poll(lane)
+        np.testing.assert_array_equal(polled[0], polled_values[0])
+        np.testing.assert_array_equal(polled[1], polled_values[1])
+    finally:
+        pool.close()

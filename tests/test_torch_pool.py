@@ -131,8 +131,14 @@ def test_pool_refusals():
         DetectorPool(tc, capacity=2, buckets=(128, 16384))
     with pytest.raises(ValueError, match="single card"):
         DetectorPool(tc, capacity=2, shard=True)
-    with pytest.raises(NotImplementedError, match="M8"):
-        DetectorPool(tc, capacity=2, policy="adaptive")
+    for policy in ("ladder", "pack"):
+        with pytest.raises(NotImplementedError, match="M8b"):
+            DetectorPool(tc, capacity=2, policy=policy)
+    with pytest.raises(NotImplementedError, match="M8b"):
+        DetectorPool(tc, capacity=2, ladder=object())
+    pool = DetectorPool(tc, capacity=2, policy="adaptive")
+    assert pool.policy == "adaptive"
+    pool.close()
     with pytest.raises(ValueError, match="incompatible with streaming"):
         DetectorPool(dataclasses.replace(tc, dvfs=True), capacity=2)
     pool = DetectorPool(tc, capacity=1, drain_mode="sync")
