@@ -66,6 +66,22 @@ checkout of this repository.  Phases, each printing its own lines:
      (kept, migration logs, ``pool_stats()``; scores within the bound)
      and lane 0 equal to a ``StreamingDetector`` that ``rebucket()``s at
      its logged boundaries;
+  6c. the ladder and pack pools at the same width and buckets, 6 lanes
+     connecting at 128, 6 at 512 and 4 at 2048 (premium under the
+     ladder): ``policy="ladder"`` (default ``LadderConfig``) on
+     ``synthetic.burst_stream`` feeds (1,000 events per half-window, 3x
+     over half-windows 10-25), one half-window per lane and
+     ``pump_rounds(16)`` per step, then the reference's recovery recipe;
+     sync dense and compact, three runs each, all equal, and one async
+     run; the level must reach its top and return to 0, premium lanes stay
+     at tier 0 with neutral knobs, packed lanes go home, one block shape
+     per executor, one K3 push per round; ms per round, events/s, the
+     level trajectory, transitions, shed events, pack moves, H2D padding
+     per round, and K1/K2/K3 launches (and K2's lanes) per round at each
+     level; then ``policy="pack"`` on flat 150-event feeds with less H2D
+     padding than the same feeds never packed and a packed lane equal to
+     its ``rebucket`` replay; the pack run and an 8-half-window prefix of
+     the ladder run equal to the same pools on the CPU;
   7. per-kernel times beside the plain versions' times and a bound from
      bytes and operations (K3's ring push also by host time per push over
      back-to-back pushes ending in a synchronise): CUDA events over
@@ -1128,12 +1144,13 @@ def adaptive_run(cfg, streams, windows, **pool_kw):
         pool.close()
 
 
-def rebucket_replay(cfg, xy, ts, log):
-    """Lane 0 of ``adaptive_run`` as one ``StreamingDetector`` that starts
-    at 128 and ``rebucket()``s at each logged boundary."""
+def rebucket_replay(cfg, xy, ts, log, start=128, seed=0):
+    """A pool lane (``adaptive_run``'s lane 0 by default) as one
+    ``StreamingDetector`` that starts at chunk ``start`` and
+    ``rebucket()``s at each logged boundary."""
     import numpy as np
     from repro_torch.serve import StreamingDetector
-    det = StreamingDetector(cfg, chunk=128, seed=0)
+    det = StreamingDetector(cfg, chunk=start, seed=seed)
     parts, cur = [], 0
     for m, _frm, to in log:
         parts.append(det.feed(xy[cur:m], ts[cur:m]))
@@ -1253,6 +1270,354 @@ def adaptive_phase(smi, *, device, lanes=16, windows=40, cpu_windows=14,
                              "replay")
     print(f"[adaptive] lane 0 equals a StreamingDetector rebucketed at "
           f"{[m for m, _, _ in logs[0]]} on {device}; phase took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+# Phase 6c: the ladder and pack pools.  Of every 16 lanes, 6 connect at
+# chunk 128, 6 at 512 and 4 (premium under the ladder) at 2048.
+LADDER_BUDGET = 16           # rounds per pump during the ladder run
+
+
+def ladder_placement(lanes):
+    """``(chunk, qos)`` of each lane: the first 3/8 at 128, the next 3/8 at
+    512, the last quarter at 2048 and premium."""
+    a, b = 6 * lanes // 16, 12 * lanes // 16
+    return [(128 if i < a else 512 if i < b else 2048,
+             "standard" if i < b else "premium") for i in range(lanes)]
+
+
+def ladder_streams(kind, lanes, windows, half_us):
+    """Lane ``s``'s feed (seed ``s``): under ``"ladder"`` 1,000 events per
+    half-window with a 3x burst over half-windows 10-25
+    (``synthetic.burst_stream``), under ``"pack"`` a flat 150
+    (``synthetic.ramp_stream``)."""
+    from repro_torch.events import synthetic
+    if kind == "ladder":
+        return [synthetic.burst_stream(1_000, windows, half_us,
+                                       burst_factor=3.0, burst_start=10,
+                                       burst_len=16, seed=s)
+                for s in range(lanes)]
+    return [synthetic.ramp_stream([150] * windows, half_us, seed=s)
+            for s in range(lanes)]
+
+
+def ladder_run(cfg, streams, windows, *, policy, k2_lanes, recover=False,
+               **pool_kw):
+    """Serve ``streams`` on a pool of ``policy`` (``"ladder"``, ``"pack"``
+    or, as the never-packed yardstick, ``"static"``) with
+    ``ladder_placement``: each step feeds one half-window per lane and
+    pumps, ``pump_rounds(LADDER_BUDGET)`` under the ladder (no polls),
+    else ``pump()`` then a poll of every lane; ``recover`` then runs the
+    reference's recovery recipe (up to 20 times ``pump()`` and a
+    non-blocking poll of every lane, until the level is 0, then one more
+    ``pump()``; under async drain the polls wait for the reader, whose lag
+    is part of the pressure); every lane is flushed last.  Each pump is
+    followed by a synchronise, so a pass's wall and launches are
+    attributed to the level its rounds ran at.  ``k2_lanes`` is a one-item
+    list counting the lanes K2 refreshed."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.serve import DetectorPool
+    half = cfg.dvfs_cfg.half_us
+    pool = DetectorPool(cfg, len(streams), buckets=ADAPTIVE_BUCKETS,
+                        policy=policy, migrate_patience=2, ring_rounds=8,
+                        pipeline_depth=2, **pool_kw)
+    try:
+        place = ladder_placement(len(streams))
+        lanes = [pool.connect(seed=s, chunk=c, qos=q)
+                 for s, (c, q) in enumerate(place)]
+        rt = pool._rt
+        premium = [lane for lane, (_, q) in zip(lanes, place)
+                   if q == "premium"]
+        neutral = (cfg.lut_every_chunks, rt.vdd_top, False)
+        wins = [st.ts // half for st in streams]
+        outs = {i: [] for i in range(len(lanes))}
+        levels, per_level, pads = [], {}, []
+
+        def step(pump):
+            before, k2 = dict(ops.LAUNCHES), k2_lanes[0]
+            t1 = time.perf_counter()
+            n = pump()
+            sync(cfg.device)
+            dt = time.perf_counter() - t1
+            lvl = getattr(pool.scheduler, "level", 0)
+            acc = per_level.setdefault(
+                lvl, {"passes": 0, "rounds": 0, "s": 0.0, "k2_lanes": 0,
+                      **{k: 0 for k in ops.LAUNCHES}})
+            acc["passes"] += 1
+            acc["rounds"] += n
+            acc["s"] += dt
+            acc["k2_lanes"] += k2_lanes[0] - k2
+            for k in ops.LAUNCHES:
+                acc[k] += ops.LAUNCHES[k] - before[k]
+            levels.append(lvl)
+            c = rt._states.ctrl
+            for lane in premium:
+                if rt._lanes[lane].tier != 0 or (
+                        int(c.lut_every[lane]), int(c.vdd_cap[lane]),
+                        bool(c.shed[lane])) != neutral:
+                    raise AssertionError(f"premium lane {lane} degraded")
+            ps = pool.pool_stats()
+            away = sum(rt._lanes[lane].bucket != c
+                       for lane, (c, _) in zip(lanes, place))
+            pads.append((ps["rounds_executed"], ps["h2d_padding_bytes"],
+                         away))
+
+        t0 = time.perf_counter()
+        for j in range(windows):
+            for i, lane in enumerate(lanes):
+                m = wins[i] == j
+                pool.feed(lane, streams[i].xy[m], streams[i].ts[m])
+            if policy == "ladder":
+                step(lambda: pool.pump_rounds(LADDER_BUDGET))
+            else:
+                step(pool.pump)
+                for i, lane in enumerate(lanes):
+                    outs[i].append(pool.poll(lane))
+        if recover:
+            for _ in range(20):
+                step(pool.pump)
+                for i, lane in enumerate(lanes):
+                    outs[i].append(pool.poll(
+                        lane, wait=pool.drain_mode == "async"))
+                if pool.scheduler.level == 0:
+                    break
+            step(pool.pump)
+        for i, lane in enumerate(lanes):
+            outs[i].append(pool.flush(lane))
+        wall = time.perf_counter() - t0
+        lane_stats = [pool.stats(lane) for lane in lanes]
+        res = {i: (np.concatenate([o[0] for o in v]),
+                   np.concatenate([o[1] for o in v]))
+               for i, v in outs.items()}
+        return dict(
+            res=res, wall=wall, levels=levels, per_level=per_level,
+            pads=pads, stats=lane_stats, pool=pool.pool_stats(),
+            logs=[st["migration_log"] for st in lane_stats],
+            home=[st["bucket"] for st in lane_stats] == [c for c, _ in place],
+            once=pool.executors_compiled_once(),
+            scored=sum(len(r[1]) for r in res.values()))
+    finally:
+        pool.close()
+
+
+def _compare_ladder_runs(got, want, what, *, pool_stats):
+    """Two runs of one pool: results, levels and migration logs equal, and
+    with ``pool_stats`` the per-lane tiers and knobs and ``pool_stats()``
+    apart from wall-clock keys (scores within the bound when the two ran
+    on different devices).  Returns the scores' max |delta|."""
+    import numpy as np
+    from repro_torch.obs.schema import WALL_TIME_KEYS
+    if got["levels"] != want["levels"] or got["logs"] != want["logs"]:
+        raise AssertionError(f"{what}: level trajectory or migration logs "
+                             f"differ")
+    err = 0.0
+    for i in want["res"]:
+        if not np.array_equal(got["res"][i][1], want["res"][i][1]):
+            raise AssertionError(f"{what}: lane {i} kept differs")
+        err = max(err, close(got["res"][i][0], want["res"][i][0]))
+    if pool_stats:
+        for g, w in zip(got["stats"], want["stats"]):
+            for key in ("ladder_tier", "ctrl_lut_every", "ctrl_vdd_cap",
+                        "ctrl_shed", "shed_events", "bucket"):
+                if g[key] != w[key]:
+                    raise AssertionError(f"{what}: lane {g['lane']} {key} "
+                                         f"{g[key]} vs {w[key]}")
+        for key in want["pool"]:
+            if key not in WALL_TIME_KEYS | {"h2d_pinned_staging"} \
+                    and got["pool"][key] != want["pool"][key]:
+                raise AssertionError(f"{what}: pool_stats[{key!r}] "
+                                     f"{got['pool'][key]} vs "
+                                     f"{want['pool'][key]}")
+    return err
+
+
+def padding_by_placement(pads):
+    """H2D padding bytes per round over the passes that ran with every lane
+    in its home bucket, and over those with the most lanes packed away
+    (``pads``: cumulative ``(rounds, padding bytes, lanes away)`` after each
+    pass; a pass's rounds run with the moves applied at its start)."""
+    most = max(p[2] for p in pads)
+    sums = {0: [0, 0], most: [0, 0]}
+    prev = (0, 0)
+    for r, b, away in pads:
+        if away in sums:
+            sums[away][0] += r - prev[0]
+            sums[away][1] += b - prev[1]
+        prev = (r, b)
+    return most, tuple(b / r if r else float("nan")
+                       for r, b in (sums[0], sums[most]))
+
+
+def _runs(levels):
+    """A level trajectory as (level, passes) runs."""
+    out = []
+    for lvl in levels:
+        if out and out[-1][0] == lvl:
+            out[-1][1] += 1
+        else:
+            out.append([lvl, 1])
+    return " ".join(f"{lvl}x{n}" for lvl, n in out)
+
+
+def ladder_phase(smi, *, device, lanes=16, windows=40, cpu_windows=8,
+                 reps=3):
+    """Phase 6c: the rest of the control plane at the DAVIS240 x16 pool's
+    width on ``device``: the ladder pool (``policy="ladder"``, default
+    ``LadderConfig``: QoS-ordered tiers, shedding, packing at the top
+    level) through a 3x burst on a round budget and its recovery, sync
+    drain, dense and compact readout, ``reps`` runs each (all equal), one
+    async run checked for invariants, and a prefix of ``cpu_windows``
+    half-windows against the same pool on the CPU; then the pack pool
+    (``policy="pack"``) on sparse feeds, against the CPU pool, with a
+    packed lane against a ``rebucket`` replay.  Returns the launch counts
+    of the runs.  Smaller arguments rehearse the phase on the CPU."""
+    import numpy as np
+    from repro_torch.kernels import harris_conv, ops
+
+    t_phase = time.perf_counter()
+    cfg = davis_pool_cfg(device)
+    half = cfg.dvfs_cfg.half_us
+    cpu_cfg = dataclasses.replace(cfg, device="cpu")
+    burst = ladder_streams("ladder", lanes, windows, half)
+    sparse = ladder_streams("pack", lanes, windows, half)
+    top = 3                            # the default LadderConfig's
+    k2_lanes = [0]
+    harris_cuda = harris_conv.harris_cuda
+
+    def counted(tos, **kw):
+        k2_lanes[0] += tos.shape[0]
+        return harris_cuda(tos, **kw)
+
+    harris_conv.harris_cuda = counted
+    try:
+        ops.reset_launch_counts()
+        runs = {ro: [ladder_run(cfg, burst, windows, policy="ladder",
+                                k2_lanes=k2_lanes, recover=True,
+                                readout=ro, drain_mode="sync")
+                     for _ in range(reps)]
+                for ro in ("dense", "compact")}
+        runs["async"] = [ladder_run(cfg, burst, windows, policy="ladder",
+                                    k2_lanes=k2_lanes, recover=True,
+                                    readout="dense", drain_mode="async")]
+        runs["pack"] = [ladder_run(cfg, sparse, windows, policy="pack",
+                                   k2_lanes=k2_lanes, readout="dense",
+                                   drain_mode="sync")]
+        runs["static"] = [ladder_run(cfg, sparse, windows, policy="static",
+                                     k2_lanes=k2_lanes, readout="dense",
+                                     drain_mode="sync")]
+        launches = dict(ops.LAUNCHES)
+    finally:
+        harris_conv.harris_cuda = harris_cuda
+    rounds = sum(g["pool"]["rounds_executed"] for got in runs.values()
+                 for g in got)
+    print(f"[ladder] launches: {launches}; {rounds} pool rounds")
+    if device != "cpu" and min(launches[k] for k in (
+            "fused_step", "harris", "compact")) <= 0:
+        raise AssertionError(f"a kernel was not launched: {launches}")
+    if device != "cpu" and launches["compact"] != rounds:
+        raise AssertionError(f"{launches['compact']} K3 ring pushes for "
+                             f"{rounds} pool rounds")
+
+    for name in ("dense", "compact", "async"):
+        for r, g in enumerate(runs[name]):
+            ps = g["pool"]
+            if max(g["levels"]) != top or g["levels"][-1] != 0:
+                raise AssertionError(f"ladder {name} run {r}: levels "
+                                     f"{_runs(g['levels'])}")
+            if not (ps["pack_moves"] > 0 and g["home"] and g["once"]):
+                raise AssertionError(
+                    f"ladder {name} run {r}: pack_moves "
+                    f"{ps['pack_moves']}, lanes home {g['home']}, "
+                    f"one block shape per executor {g['once']}")
+    for name in ("dense", "compact"):
+        for r, again in enumerate(runs[name][1:], 1):
+            _compare_ladder_runs(again, runs[name][0],
+                                 f"ladder {name} repeat {r}",
+                                 pool_stats=False)
+    _compare_ladder_runs(runs["compact"][0], runs["dense"][0],
+                         "ladder compact vs dense", pool_stats=False)
+    fed = {"pack": sum(len(st) for st in sparse),
+           "static": sum(len(st) for st in sparse)}
+    for name, got in runs.items():
+        walls = sorted(g["wall"] for g in got)
+        g = got[0]
+        ps, n_rounds = g["pool"], g["pool"]["rounds_executed"]
+        wall = walls[len(walls) // 2]
+        most, (pad_home, pad_packed) = padding_by_placement(g["pads"])
+        print(f"[ladder] {smi}: {name} ({ps['drain_mode']} "
+              f"{ps['readout']}): {g['scored']} events scored of "
+              f"{fed.get(name, sum(len(st) for st in burst))} fed on "
+              f"{lanes} lanes in {windows} half-windows, wall median of "
+              f"{len(walls)} runs {wall:.4f} s (min {walls[0]:.4f}, max "
+              f"{walls[-1]:.4f}) = {g['scored'] / wall:.0f} events/s; "
+              f"{n_rounds} rounds, {wall / n_rounds * 1e3:.4f} ms per round "
+              f"(min {walls[0] / n_rounds * 1e3:.4f}, max "
+              f"{walls[-1] / n_rounds * 1e3:.4f}); transitions "
+              f"{ps.get('ladder_transitions')}, shed events "
+              f"{ps['shed_events_total']}, pack moves {ps.get('pack_moves')} "
+              f"(saved slots {ps.get('pack_saved_slots')}), migrations "
+              f"{ps['migrations_total']}")
+        if name not in ("pack", "static"):
+            print(f"[ladder] {name}: levels by pass {_runs(g['levels'])}; "
+                  f"H2D padding bytes per round {pad_home:.0f} with every "
+                  f"lane home, {pad_packed:.0f} with {most} lanes packed")
+        for lvl in sorted(g["per_level"]):
+            a = g["per_level"][lvl]
+            r_ = max(a["rounds"], 1)
+            print(f"[ladder] {name} level {lvl}: {a['passes']} passes, "
+                  f"{a['rounds']} rounds, {a['s'] / r_ * 1e3:.4f} ms per "
+                  f"round (pump and synchronise), per round K1 "
+                  f"{a['fused_step'] / r_:.3f}, K2 {a['harris'] / r_:.3f} "
+                  f"launches over {a['k2_lanes'] / r_:.3f} lanes, K3 "
+                  f"{a['compact'] / r_:.3f}")
+
+    # The pack run against the same feeds never packed (the static pool),
+    # then a packed lane against a rebucket replay.
+    g, base = runs["pack"][0], runs["static"][0]
+    ps, ps0 = g["pool"], base["pool"]
+    pad = {k: (p["h2d_padding_bytes"], p["rounds_executed"])
+           for k, p in (("pack", ps), ("static", ps0))}
+    if not (ps["pack_moves"] > 0 and ps["pack_saved_slots"] > 0
+            and g["once"] and pad["pack"][0] < pad["static"][0]
+            and pad["pack"][0] / pad["pack"][1]
+            < pad["static"][0] / pad["static"][1]):
+        raise AssertionError(
+            f"pack run: pack_moves {ps['pack_moves']}, saved "
+            f"{ps['pack_saved_slots']}, H2D padding bytes and rounds {pad}")
+    print(f"[ladder] pack: H2D padding {pad['pack'][0]} bytes in "
+          f"{pad['pack'][1]} rounds = {pad['pack'][0] / pad['pack'][1]:.0f} "
+          f"per round, against {pad['static'][0]} in {pad['static'][1]} = "
+          f"{pad['static'][0] / pad['static'][1]:.0f} per round never "
+          f"packed (static, same feeds): {1 - pad['pack'][0] / pad['static'][0]:.3f}"
+          f" saved")
+    lane = max(i for i, lg in enumerate(g["logs"]) if lg)
+    start = ladder_placement(lanes)[lane][0]
+    s_, k_ = rebucket_replay(cfg, sparse[lane].xy, sparse[lane].ts,
+                             g["logs"][lane], start=start, seed=lane)
+    if not (np.array_equal(s_, g["res"][lane][0])
+            and np.array_equal(k_, g["res"][lane][1])):
+        raise AssertionError(f"pack lane {lane} differs from its rebucket "
+                             f"replay")
+    print(f"[ladder] pack: lane {lane} equals a StreamingDetector from "
+          f"{start} rebucketed at {[m for m, _, _ in g['logs'][lane]]}")
+
+    # The same pools on the CPU (plain versions).
+    want = ladder_run(cpu_cfg, sparse, windows, policy="pack",
+                      k2_lanes=[0], readout="dense", drain_mode="sync")
+    err = _compare_ladder_runs(g, want, "pack vs CPU", pool_stats=True)
+    print(f"[ladder] pack: kept, levels, migration logs, tiers, knobs and "
+          f"pool_stats equal to the CPU pool, scores max|delta| {err:.3g}")
+    got = ladder_run(cfg, burst, cpu_windows, policy="ladder",
+                     k2_lanes=[0], readout="compact", drain_mode="sync")
+    want = ladder_run(cpu_cfg, burst, cpu_windows, policy="ladder",
+                      k2_lanes=[0], readout="compact", drain_mode="sync")
+    err = _compare_ladder_runs(got, want, "ladder prefix vs CPU",
+                               pool_stats=True)
+    print(f"[ladder] {cpu_windows} half-windows: levels "
+          f"{_runs(got['levels'])}, {got['pool']['pack_moves']} pack moves, "
+          f"kept, migration logs, tiers, knobs and pool_stats equal to the "
+          f"CPU pool, scores max|delta| {err:.3g}; phase took "
           f"{time.perf_counter() - t_phase:.1f} s")
     return launches
 
@@ -1485,6 +1850,9 @@ def main() -> int:
     # --- 6b. the adaptive pool: live migration and per-lane knobs ------
     adaptive_launches = adaptive_phase(smi, device="cuda")
 
+    # --- 6c. the ladder and pack pools: the per-pump control loop -------
+    ladder_launches = ladder_phase(smi, device="cuda")
+
     # --- 7. times at the main path's shapes ----------------------------
     # K1 as the main path calls it: in place on a state it owns, each call
     # on a fresh copy of the same state (made before the timed window), HD
@@ -1650,7 +2018,8 @@ def main() -> int:
         "K1 fused_step.cu": K1_KERNELS, "K2 harris.cu": ("harris_kernel",)})
 
     launches = {k: batch_launches[k] + serve_launches[k]
-                + adaptive_launches[k] for k in serve_launches}
+                + adaptive_launches[k] + ladder_launches[k]
+                for k in serve_launches}
     kernels = [
         {"name": "fused_step", "route": "cuda",
          "source": "src/repro_torch/csrc/fused_step.cu",

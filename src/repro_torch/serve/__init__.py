@@ -11,14 +11,25 @@ pool, on the card.
               or by a reader thread on its own CUDA stream (``"async"``),
               with dense or compact (K3 records) readout and a pipelined
               stage -> dispatch pump.
-  scheduler — placement policy: ``"static"``, or ``"adaptive"`` (live
-              bucket migration from the measured event rate).
+  scheduler — the control plane: ``"static"``, ``"adaptive"`` (live
+              bucket migration from the measured event rate),
+              ``"ladder"`` (``DegradationLadder``: QoS-ordered degradation
+              under backlog pressure, packing at its top level; tuned by
+              ``LadderConfig``) and ``"pack"`` (``PackScheduler``: fleet
+              packing that cuts padded H2D uploads), the last two acting
+              on the runtime's per-pump ``Observation`` through
+              ``Action`` records.
   pool      — ``DetectorPool``: the façade wiring the two together.
 """
 from repro_torch.serve.pool import DetectorPool  # noqa: F401
 from repro_torch.serve.runtime import PoolRuntime  # noqa: F401
 from repro_torch.serve.scheduler import (  # noqa: F401
+    Action,
     AdaptiveScheduler,
+    DegradationLadder,
+    LadderConfig,
+    Observation,
+    PackScheduler,
     StaticScheduler,
 )
 from repro_torch.serve.streaming import (  # noqa: F401
@@ -26,5 +37,16 @@ from repro_torch.serve.streaming import (  # noqa: F401
     session_base_us,
 )
 
-__all__ = ["DetectorPool", "PoolRuntime", "StaticScheduler",
-           "AdaptiveScheduler", "StreamingDetector", "session_base_us"]
+__all__ = [
+    "StreamingDetector",
+    "DetectorPool",
+    "PoolRuntime",
+    "StaticScheduler",
+    "AdaptiveScheduler",
+    "DegradationLadder",
+    "PackScheduler",
+    "LadderConfig",
+    "Observation",
+    "Action",
+    "session_base_us",
+]

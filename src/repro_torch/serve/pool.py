@@ -4,13 +4,18 @@ wired to a placement scheduler.
 ``DetectorPool`` is a thin façade over ``serve.runtime.PoolRuntime`` (the
 data plane: executors, device rings, the reader thread, lane buffers) and
 a ``serve.scheduler`` policy (which bucket a lane lands in, which order
-buckets pump in).  ``policy="static"`` keeps a lane in the bucket chosen
-at ``connect()`` for life and pumps buckets in ascending order;
-``policy="adaptive"`` moves a lane between buckets live as its measured
-event rate changes (each ``poll`` / ``flush`` is one rate observation)
-and pumps the most backlogged bucket first.  ``set_lane_control`` moves a
-lane's degradation knobs.  The reference's ladder and pack policies are
-refused until they are ported (``ROADMAP.md``, M8b).
+buckets pump in, which knobs a lane runs at).  ``policy="static"`` keeps a
+lane in the bucket chosen at ``connect()`` for life and pumps buckets in
+ascending order; ``policy="adaptive"`` moves a lane between buckets live
+as its measured event rate changes (each ``poll`` / ``flush`` is one rate
+observation) and pumps the most backlogged bucket first;
+``policy="ladder"`` degrades lanes under backlog pressure, QoS class by
+class (``connect(qos=)``, ``ladder=LadderConfig(...)``), and packs sparse
+buckets at its top level; ``policy="pack"`` packs alone.  The ladder and
+pack decide once per pump pass, on the runtime's ``Observation``: their
+knob writes apply before the pass's rounds, their moves at the next pass;
+``poll`` never actuates them.  ``set_lane_control`` moves a lane's
+degradation knobs by hand.
 
 A lane's outputs equal a standalone ``StreamingDetector``'s and
 ``run_pipeline``'s on that lane's full stream, whatever the interleaving,
@@ -43,9 +48,11 @@ class DetectorPool:
 
     ``migrate_patience`` and ``migrate_margin`` tune ``policy="adaptive"``
     (rate windows a move must be wanted for; the headroom a move down
-    needs); ``scheduler=`` passes a policy object instead, whose buckets
-    must be the pool's.  ``ladder=`` is accepted for the reference's
-    signature and refused unless ``None``.
+    needs); ``migrate_patience`` is also ``policy="pack"``'s patience.
+    ``ladder=`` configures ``policy="ladder"`` (default ``LadderConfig()``;
+    its base refresh interval is ``cfg.lut_every_chunks`` and its top
+    operating point the runtime's ``vdd_top``).  ``scheduler=`` passes a
+    policy object instead, whose buckets must be the pool's.
     """
 
     def __init__(self, cfg, capacity: int, *, seed: int = 0,
@@ -61,13 +68,9 @@ class DetectorPool:
                  policy: str = "static",
                  migrate_patience: int = 3,
                  migrate_margin: float = 0.9,
-                 ladder: object = None,
+                 ladder: Optional[scheduler_mod.LadderConfig] = None,
                  scheduler: Optional[scheduler_mod.StaticScheduler] = None,
                  metrics: Optional[obs_mod.MetricsRegistry] = None):
-        if ladder is not None:
-            raise NotImplementedError(
-                "ladder= configures the degradation ladder, which is not "
-                "ported yet (ROADMAP item M8b)")
         self._rt = PoolRuntime(
             cfg, capacity, seed=seed, ring_rounds=ring_rounds,
             buckets=buckets, on_overflow=on_overflow, shard=shard,
@@ -85,7 +88,9 @@ class DetectorPool:
             else:
                 self._sched = scheduler_mod.make_scheduler(
                     policy, self._rt.buckets, patience=migrate_patience,
-                    down_margin=migrate_margin)
+                    down_margin=migrate_margin, ladder=ladder,
+                    base_lut_every=cfg.lut_every_chunks,
+                    vdd_top=self._rt.vdd_top)
         except BaseException:
             self._rt.close()          # stop the reader thread, then refuse
             raise
@@ -124,13 +129,21 @@ class DetectorPool:
         """Claim a free lane for a new camera session; returns the lane id.
         ``chunk`` requests a per-session chunk size: the lane lands in the
         smallest configured bucket that fits (default ``cfg.chunk``).
-        ``qos`` is carried as a label.  Under ``policy="adaptive"`` the
-        placement is only the starting point."""
+        ``qos`` names the session's QoS class: under ``policy="ladder"`` it
+        must be one of the ladder's classes (earlier classes degrade
+        first); other policies carry it as a label.  Under
+        ``policy="adaptive"`` the placement is only the starting point."""
         want = self._cfg.chunk if chunk is None else int(chunk)
         bucket = self._sched.place(want)
         if bucket is None:
             raise ValueError(
                 f"no chunk bucket fits {want} (buckets: {self._rt.buckets})"
+            )
+        lad = getattr(self._sched, "ladder", None)
+        if lad is not None and qos not in lad.qos_names():
+            raise ValueError(
+                f"unknown QoS class {qos!r} (ladder classes: "
+                f"{lad.qos_names()})"
             )
         lane = self._rt.connect(bucket, seed, qos=qos)
         self._forget(lane)
@@ -182,9 +195,12 @@ class DetectorPool:
     def pump_rounds(self, max_rounds: Optional[int] = None) -> int:
         """Like ``pump`` but stops after at most ``max_rounds`` rounds
         (``None`` = run until dry).  Moves parked by non-blocking polls
-        are staged first and staged moves apply before any round."""
+        are staged first, staged moves apply before any round, and a
+        policy that decides per pump (ladder, pack) observes and acts
+        then."""
         self._stage_deferred()
-        return self._rt.pump_pass(self._order(), max_rounds)
+        return self._rt.pump_pass(self._order(), max_rounds,
+                                  decide=self._decide())
 
     def flush(self, lane: int):
         """Drain the lane's full chunks, then its padded partial tail, and
@@ -213,6 +229,14 @@ class DetectorPool:
         backlog = (self._rt.bucket_backlog_rounds()
                    if self._sched.needs_backlog else {})
         return self._sched.order(backlog)
+
+    def _decide(self):
+        """The scheduler's ``decide`` for the runtime's per-pump control
+        loop, or ``None`` for a policy that never acts there (static,
+        adaptive), so no ``Observation`` is built for it."""
+        if not self._sched.needs_pump_observation:
+            return None
+        return self._sched.decide
 
     def _observe(self, lane: int, *, allow_stage: bool = True) -> None:
         """Give the scheduler one rate sample for ``lane`` and stage the
@@ -266,7 +290,8 @@ class DetectorPool:
         return self._rt.stats(lane)
 
     def pool_stats(self) -> dict:
-        """Pool-level runtime counters plus the active policy; see
+        """Pool-level runtime counters plus the active policy and its own
+        counters (``ladder_level``, ``pack_moves``, ...); see
         ``PoolRuntime.pool_stats``."""
         out = self._rt.pool_stats()
         out["policy"] = self._sched.policy

@@ -67,12 +67,22 @@ buffer re-chunks at the new size from the next collect.
 step), so a write launches nothing.  A shedding lane keeps at most one
 ring of rounds in its re-chunk buffer, dropping the oldest events.
 
+**Control loop.**  ``pump_pass(..., decide=)`` runs a policy's
+observe -> decide -> actuate step under the pump token, after the staged
+moves apply and before any round is collected.  The ``Observation`` is
+host data only (no device read); each lane's part is memoised on a
+generation counter that feed, shed, round collection, move apply and tier
+writes bump, so an idle lane is served from its cache
+(``observation_rebuilds`` / ``observation_reuses``).  The returned actions
+write their knobs first, every write of the pass in one replacement of
+the ``ctrl`` leaves (``ctrl_batched_writes`` / ``ctrl_actions_coalesced``
+when more than one lane's knobs move), then mirror tiers and stage moves,
+which apply at the next pass.
+
 **Thread safety.**  One re-entrant lock guards all mutable state; the
 reader takes it only to distribute and recycle, never across a transfer.
 A pump token serializes whole pump passes, migrations and knob writes.
 
-Not ported yet (``ROADMAP.md``, M8b): the per-pump observe/decide loop
-and its coalesced knob writes; their stats counters are truthful zeros.
 The card is one device: there is no lane mesh.
 """
 from __future__ import annotations
@@ -92,6 +102,7 @@ from repro_torch.core import state as state_mod
 from repro_torch.kernels import fused_step
 from repro_torch.launch import sharding as sharding_mod
 from repro_torch.obs.schema import POOL_BUCKET_STATS, POOL_STATS
+from repro_torch.serve import scheduler as scheduler_mod
 from repro_torch.serve import streaming as streaming_mod
 
 __all__ = ["PoolRuntime", "EVENT_SLOT_BYTES"]
@@ -111,11 +122,13 @@ class _Lane:
     __slots__ = ("bucket", "buf_xy", "buf_ts", "base", "results", "n_events",
                  "n_chunks", "kept_total", "energy_pj", "latency_ns",
                  "vdd_trace", "events_folded", "migrations", "migration_log",
-                 "shed_events", "r_win", "r_cur", "r_p1", "r_p2", "qos")
+                 "shed_events", "r_win", "r_cur", "r_p1", "r_p2", "qos",
+                 "tier", "gen", "obs_cache")
 
     def __init__(self, bucket: int, *, qos: str = "standard"):
         self.bucket = bucket
         self.qos = qos
+        self.tier = 0                   # actuated ladder tier (mirror)
         self.buf_xy = np.zeros((0, 2), np.int32)
         self.buf_ts = np.zeros((0,), np.int64)
         self.base: Optional[int] = None
@@ -139,6 +152,11 @@ class _Lane:
         self.r_cur = 0
         self.r_p1 = 0
         self.r_p2 = 0
+        # Observation memo: ``gen`` moves with everything a
+        # LaneObservation reads (feed, shed, round collection, move apply,
+        # tier write); ``obs_cache`` is ``(gen, LaneObservation)``.
+        self.gen = 0
+        self.obs_cache: Optional[tuple] = None
 
     def rate_update(self, ts: np.ndarray, half: int) -> None:
         """Fold one time-sorted slab into the rate twin (only the last three
@@ -338,8 +356,7 @@ class PoolRuntime:
 
     def _declare_metrics(self, buckets: tuple) -> None:
         """Declare every runtime witness on the registry and bind its
-        handle(s), as the reference does; the counters of mechanisms not
-        ported yet (coalesced knob writes, observations) stay at 0."""
+        handle(s), as the reference does."""
         reg = self._metrics
         p, bk = POOL_STATS, POOL_BUCKET_STATS
 
@@ -576,6 +593,7 @@ class PoolRuntime:
             ln.buf_ts = np.concatenate([ln.buf_ts, ts], 0)
             ln.n_events += int(ts.size)
             ln.rate_update(ts, self._half_us)
+            ln.gen += 1
             if self._states.ctrl.shed[lane]:
                 self._shed_buffer(ln)
 
@@ -587,13 +605,16 @@ class PoolRuntime:
             ln.buf_xy = ln.buf_xy[excess:]
             ln.buf_ts = ln.buf_ts[excess:]
             ln.shed_events += excess
+            ln.gen += 1
 
     def pump_pass(self, order: tuple,
-                  max_rounds: Optional[int] = None) -> int:
-        """One serialized pump pass: apply the staged migrations, then fold
-        every buffered full chunk through the bucket executors, visiting
-        buckets in ``order`` (each pumps until dry or the round budget runs
-        out).  Returns rounds executed.
+                  max_rounds: Optional[int] = None, decide=None) -> int:
+        """One serialized pump pass: apply the staged migrations, run the
+        control loop when a policy's ``decide`` is given (its knob writes
+        apply to this pass's rounds, its moves stage for the next pass),
+        then fold every buffered full chunk through the bucket executors,
+        visiting buckets in ``order`` (each pumps until dry or the round
+        budget runs out).  Returns rounds executed.
         Results stay in the device rings until ``poll``/``flush`` (or a
         backpressure drain under ``"drain"``).  Blocks are staged and
         dispatched through one stage-ahead deque, flushed before the pass
@@ -603,6 +624,10 @@ class PoolRuntime:
             self._acquire_pump()
             try:
                 self._apply_staged_locked()
+                if decide is not None:
+                    actions = decide(self._observation_locked())
+                    if actions:
+                        self._apply_actions_locked(actions)
                 total = 0
                 q: collections.deque = collections.deque()
                 self._pass_dispatches = 0
@@ -711,13 +736,22 @@ class PoolRuntime:
                 # to the old session and is dropped.
                 if self._lanes[lane] is not ln or not self._active[lane]:
                     return
-                if new_bucket == ln.bucket:   # a pass applied a move
-                    self._staged.pop(lane, None)
-                    return
-                self._drain_bucket(ln.bucket)
-                self._staged[lane] = new_bucket
+                self._stage_locked(lane, new_bucket)
             finally:
                 self._release_pump()
+
+    def _stage_locked(self, lane: int, new_bucket: int) -> None:
+        """The stage body (caller holds the lock and the pump token, from
+        ``stage_migration`` or from a pass actuating a migrate action; the
+        token is not re-entrant): drain the lane's bucket and record the
+        target, or cancel when the lane already sits there (a pass may
+        have applied a move during the token wait)."""
+        ln = self._lanes[lane]
+        if new_bucket == ln.bucket:
+            self._staged.pop(lane, None)
+            return
+        self._drain_bucket(ln.bucket)
+        self._staged[lane] = new_bucket
 
     def staged_migrations(self) -> dict:
         """Pending (staged, not yet applied) moves: ``{lane: bucket}``."""
@@ -737,6 +771,7 @@ class PoolRuntime:
             old = ln.bucket
             self._drain_bucket(old)
             ln.bucket = new_bucket
+            ln.gen += 1
             ln.migrations += 1
             ln.migration_log.append((ln.events_folded, old, new_bucket))
             self._m_migrations.inc()
@@ -748,37 +783,164 @@ class PoolRuntime:
                          vdd_cap: Optional[int] = None,
                          shed: Optional[bool] = None) -> None:
         """Set a lane's degradation knobs under the pump token, so a write
-        cannot fall between a pass's rounds.  ``lut_every`` is clamped to
-        >= 1 and ``vdd_cap`` to ``[0, vdd_top]``; unset knobs keep their
-        value.  Entering ``shed`` drops the oldest buffered events down to
-        one ring of rounds at once.  The ``ctrl`` leaves are replaced by
-        new arrays, so a ``ctrl`` read earlier keeps its values."""
+        cannot fall between a pass's rounds: the out-of-band spelling of a
+        knob ``Action``.  ``lut_every`` is clamped to >= 1 and ``vdd_cap``
+        to ``[0, vdd_top]``; unset knobs keep their value.  Entering
+        ``shed`` drops the oldest buffered events down to one ring of
+        rounds at once.  The ``ctrl`` leaves are replaced by new arrays,
+        so a ``ctrl`` read earlier keeps its values."""
         with self._lock:
             self._check_open()
             self._check_lane(lane)
             self._acquire_pump()
             try:
                 self._check_lane(lane)    # re-validate after the token wait
-                c = self._states.ctrl
-                was_shed = bool(c.shed[lane])
-                want = (
-                    c.lut_every[lane] if lut_every is None
-                    else max(1, int(lut_every)),
-                    c.vdd_cap[lane] if vdd_cap is None
-                    else max(0, min(int(vdd_cap), self._vdd_top)),
-                    was_shed if shed is None else bool(shed),
-                )
-                leaves = []
-                for leaf, value in zip(c, want):
-                    leaf = leaf.copy()
-                    leaf[lane] = value
-                    leaves.append(leaf)
-                self._states = self._states._replace(
-                    ctrl=state_mod.ControlState(*leaves))
-                if want[2] and not was_shed:
-                    self._shed_buffer(self._lanes[lane])
+                want = self._knob_want(lane, lut_every, vdd_cap, shed)
+                if want is not None:
+                    self._write_knobs_locked([(lane, want)])
             finally:
                 self._release_pump()
+
+    def _knob_want(self, lane: int, lut_every: Optional[int],
+                   vdd_cap: Optional[int],
+                   shed: Optional[bool]) -> Optional[tuple]:
+        """A knob request clamped against the lane's ``ctrl`` entries (the
+        only copy of its knobs); ``None`` when it would change nothing."""
+        c = self._states.ctrl
+        cur = (int(c.lut_every[lane]), int(c.vdd_cap[lane]),
+               bool(c.shed[lane]))
+        want = (
+            cur[0] if lut_every is None else max(1, int(lut_every)),
+            cur[1] if vdd_cap is None
+            else max(0, min(int(vdd_cap), self._vdd_top)),
+            cur[2] if shed is None else bool(shed),
+        )
+        return None if want == cur else want
+
+    def _write_knobs_locked(self, writes: list) -> None:
+        """Write ``[(lane, (lut_every, vdd_cap, shed)), ...]`` as one
+        replacement of the three ``ctrl`` leaves (caller holds the lock and
+        the pump token); later writes to a lane win.  A pass's writes of
+        more than one lane count as one coalesced write, as the reference's
+        batched update does.  A lane entering ``shed`` drops its oldest
+        buffered events at once."""
+        c = self._states.ctrl
+        shed_now = {lane: bool(c.shed[lane]) for lane, _ in writes}
+        leaves = [leaf.copy() for leaf in c]
+        for lane, want in writes:
+            for leaf, value in zip(leaves, want):
+                leaf[lane] = value
+        self._states = self._states._replace(
+            ctrl=state_mod.ControlState(*leaves))
+        if len(writes) > 1:
+            self._m_ctrl_writes.inc()
+            self._m_ctrl_coalesced.inc(len(writes))
+        for lane, want in writes:
+            if want[2] and not shed_now[lane]:
+                self._shed_buffer(self._lanes[lane])
+            shed_now[lane] = want[2]
+
+    # -- control loop: observe -> decide -> actuate ---------------------------
+
+    def _observation_locked(self) -> scheduler_mod.Observation:
+        """The per-pump ``Observation`` (caller holds the lock and the pump
+        token, the staged moves applied).  Host data only: observing reads
+        nothing from the device.  A lane whose generation has not moved
+        since its last observation is served from its cache."""
+        lanes = []
+        backlog = {b: 0 for b in self._buckets}
+        for lane in self.active_lanes:
+            ln = self._lanes[lane]
+            cached = ln.obs_cache
+            if cached is not None and cached[0] == ln.gen:
+                lob = cached[1]
+                self._m_obs_reuses.inc()
+            else:
+                eps = state_mod.rate_estimate_eps(
+                    ln.r_p1, ln.r_p2, self._cfg.dvfs_cfg
+                )
+                lob = scheduler_mod.LaneObservation(
+                    lane=lane,
+                    bucket=ln.bucket,
+                    qos=ln.qos,
+                    tier=ln.tier,
+                    events_per_halfwin=eps * self._half_us * 1e-6,
+                    backlog_rounds=int(ln.buf_ts.size) // ln.bucket,
+                    win=ln.r_win,
+                )
+                ln.obs_cache = (ln.gen, lob)
+                self._m_obs_rebuilds.inc()
+            backlog[lob.bucket] += lob.backlog_rounds
+            lanes.append(lob)
+        h2d_slots = sum(h.value() for h in self._m_h2d_slots.values())
+        h2d_valid = sum(h.value() for h in self._m_h2d_valid.values())
+        return scheduler_mod.Observation(
+            lanes=tuple(lanes),
+            backlog_rounds=backlog,
+            reader_lag_rounds={b: self._m_sealed[b].value()
+                               for b in self._buckets},
+            drain_wait_s=float(self._m_drain_wait.value()),
+            last_drain_wait_s={b: float(self._m_last_drain_wait[b].value())
+                               for b in self._buckets},
+            padding_ratio=(
+                1.0 - h2d_valid / h2d_slots if h2d_slots else 0.0
+            ),
+            h2d_event_slots=h2d_slots,
+            h2d_valid_events=h2d_valid,
+            h2d_padding_bytes=(h2d_slots - h2d_valid) * EVENT_SLOT_BYTES,
+            h2d_by_bucket={
+                b: {"slots": self._m_h2d_slots[b].value(),
+                    "valid": self._m_h2d_valid[b].value()}
+                for b in self._buckets
+            },
+            phys=self._phys,
+            ring_rounds=self._ring_rounds,
+        )
+
+    def _apply_actions_locked(self, actions) -> None:
+        """Actuate a policy's decisions (caller holds the lock and the pump
+        token).  ``drop_policy`` flips now; actions for lanes retired since
+        the observation are dropped (the decision belonged to the dead
+        session).  Every knob write of the pass lands first, in one
+        replacement of the ``ctrl`` leaves, so a lane that also moves has
+        its new knobs before the move is staged; then tiers are mirrored
+        and moves staged, to apply at the next pass."""
+        writes = []
+        for act in actions:
+            if act.drop_policy is not None:
+                if act.drop_policy not in _OVERFLOW_POLICIES:
+                    raise ValueError(
+                        f"drop_policy must be one of {_OVERFLOW_POLICIES}, "
+                        f"got {act.drop_policy!r}"
+                    )
+                self._overflow = act.drop_policy
+            if not self._live(act.lane):
+                continue
+            want = self._knob_want(act.lane, act.lut_every, act.vdd_cap,
+                                   act.shed)
+            if want is not None:
+                writes.append((act.lane, want))
+        if writes:
+            self._write_knobs_locked(writes)
+        for act in actions:
+            if not self._live(act.lane):
+                continue
+            ln = self._lanes[act.lane]
+            if act.tier is not None and int(act.tier) != ln.tier:
+                ln.tier = int(act.tier)
+                ln.gen += 1
+            if act.migrate is not None:
+                if act.migrate not in self._buckets:
+                    raise ValueError(
+                        f"{act.migrate} is not a configured bucket "
+                        f"({self._buckets})"
+                    )
+                self._stage_locked(act.lane, act.migrate)
+
+    def _live(self, lane: Optional[int]) -> bool:
+        """Whether an action's lane is an active session."""
+        return (lane is not None and 0 <= lane < self._capacity
+                and bool(self._active[lane]))
 
     @property
     def vdd_top(self) -> int:
@@ -859,7 +1021,7 @@ class PoolRuntime:
             "reader_lag_rounds": self._m_sealed[b].value(),
             "last_drain_wait_s": float(self._m_last_drain_wait[b].value()),
             "qos": ln.qos,
-            "ladder_tier": 0,
+            "ladder_tier": ln.tier,
             "ctrl_lut_every": int(s.ctrl.lut_every[lane]),
             "ctrl_vdd_cap": int(s.ctrl.vdd_cap[lane]),
             "ctrl_shed": bool(s.ctrl.shed[lane]),
@@ -1074,6 +1236,7 @@ class PoolRuntime:
             ln.buf_xy = ln.buf_xy[n:]
             ln.buf_ts = ln.buf_ts[n:]
             ln.events_folded += n
+            ln.gen += 1
         return _Round(xy, ts, valid, mask, n_valid)
 
     def _stage_block(self, bucket: int, rounds: list, *,

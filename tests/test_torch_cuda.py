@@ -487,3 +487,94 @@ def test_adaptive_pool_on_cuda_equals_cpu(cuda, readout):
     for key in wstats:
         if key not in WALL_TIME_KEYS and key != "h2d_pinned_staging":
             assert gstats[key] == wstats[key], key
+
+
+def _serve_policy(device, policy, readout="dense"):
+    """Under ``policy="ladder"``: a standard and a premium lane (online
+    DVFS with BER) through a 2x burst on a one-round budget, then the
+    recovery recipe; under ``"pack"``: three sparse lanes over buckets
+    128 / 512 / 2048.  Returns per-lane outputs, the level after each
+    pass, the lanes' stats and ``pool_stats()``."""
+    from repro_torch.serve.scheduler import LadderConfig
+    cfg = pipeline.PipelineConfig(
+        height=180, width=240, chunk=128, lut_every_chunks=2, dvfs=True,
+        dvfs_online=True, inject_ber=True, device=device)
+    half = cfg.dvfs_cfg.half_us
+    if policy == "ladder":
+        streams = [synthetic.burst_stream(600, 12, half, burst_factor=2.0,
+                                          seed=s) for s in (0, 1)]
+        chunks, qos = (128, 128), ("standard", "premium")
+        pool = DetectorPool(cfg, 2, buckets=(128,), policy="ladder",
+                            ladder=LadderConfig(patience=1,
+                                                recover_patience=1),
+                            ring_rounds=2, drain_mode="sync",
+                            readout=readout)
+    else:
+        streams = [synthetic.ramp_stream([150] * 12, half, seed=s)
+                   for s in range(3)]
+        chunks, qos = (128, 512, 2048), ("standard",) * 3
+        pool = DetectorPool(cfg, 3, buckets=(128, 512, 2048),
+                            policy="pack", migrate_patience=2,
+                            ring_rounds=4, drain_mode="sync",
+                            readout=readout)
+    lanes = [pool.connect(seed=s, chunk=c, qos=q)
+             for s, (c, q) in enumerate(zip(chunks, qos))]
+    outs = {i: [] for i in range(len(lanes))}
+    levels = []
+    for j in range(12):
+        for i, lane in enumerate(lanes):
+            m = (streams[i].ts // half) == j
+            pool.feed(lane, streams[i].xy[m], streams[i].ts[m])
+        pool.pump_rounds(1 if policy == "ladder" else None)
+        levels.append(pool.pool_stats().get("ladder_level"))
+        for i, lane in enumerate(lanes):
+            outs[i].append(pool.poll(lane, wait=policy == "pack"))
+    for _ in range(20 if policy == "ladder" else 0):
+        pool.pump()
+        levels.append(pool.pool_stats()["ladder_level"])
+        if levels[-1] == 0:
+            break
+    for i, lane in enumerate(lanes):
+        outs[i].append(pool.flush(lane))
+    stats = [pool.stats(lane) for lane in lanes]
+    ps = pool.pool_stats()
+    pool.close()
+    return ({i: [np.concatenate(x) for x in zip(*o)] for i, o in
+             outs.items()}, levels, stats, ps)
+
+
+@pytest.mark.parametrize("policy,readout", [("ladder", "dense"),
+                                            ("ladder", "compact"),
+                                            ("pack", "dense")])
+def test_ladder_and_pack_pools_on_cuda_equal_cpu(cuda, policy, readout):
+    """A 2-lane ladder pool and a 3-bucket pack pool on the card equal the
+    same pools on the CPU: levels, tiers, knobs, migration logs, kept
+    masks and stats exact, scores within ``1e-5 * max|R|``; K1-K3
+    launched, one ring push per round."""
+    ops.reset_launch_counts()
+    got, glev, gstats, gps = _serve_policy("cuda", policy, readout)
+    assert min(ops.LAUNCHES[k] for k in ("fused_step", "harris",
+                                         "compact")) > 0, ops.LAUNCHES
+    assert ops.LAUNCHES["compact"] == gps["rounds_executed"]
+    want, wlev, wstats, wps = _serve_policy("cpu", policy, readout)
+    assert glev == wlev
+    if policy == "ladder":
+        assert max(glev) == 3 and glev[-1] == 0
+        assert gps["shed_events_total"] > 0
+    else:
+        assert gps["pack_moves"] > 0 and gps["pack_saved_slots"] > 0
+    for g, w in zip(gstats, wstats):
+        for key in ("ladder_tier", "ctrl_lut_every", "ctrl_vdd_cap",
+                    "ctrl_shed", "bucket", "migration_log", "kept_total",
+                    "shed_events"):
+            assert g[key] == w[key], key
+    for i in want:
+        np.testing.assert_array_equal(got[i][1], want[i][1])
+        fin = np.isfinite(want[i][0])
+        np.testing.assert_array_equal(np.isfinite(got[i][0]), fin)
+        if fin.any():
+            err = np.abs(got[i][0][fin] - want[i][0][fin]).max()
+            assert err <= REL * np.abs(want[i][0][fin]).max()
+    for key in wps:
+        if key not in WALL_TIME_KEYS and key != "h2d_pinned_staging":
+            assert gps[key] == wps[key], key

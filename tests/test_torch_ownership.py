@@ -301,3 +301,37 @@ def test_pool_migration_and_knob_write_alias_nothing():
         np.testing.assert_array_equal(polled[1], polled_values[1])
     finally:
         pool.close()
+
+
+@pytest.mark.parametrize("lanes", [1, 3])
+def test_pool_decide_pass_knob_writes_alias_nothing(lanes):
+    """A pump pass whose ``decide`` writes knobs (one lane: the single
+    write; several: the coalesced one) replaces the ``ctrl`` leaves, so a
+    ``ctrl`` read taken before the pass keeps its values, and an
+    ``Observation`` handed out before keeps its lanes' tiers."""
+    from repro_torch.serve.scheduler import LadderConfig
+    cfg = _cfg("dvfs_online")
+    xy, ts = _stream(4, n=8 * CHUNK)
+    pool = DetectorPool(cfg, lanes, ring_rounds=2, policy="ladder",
+                        ladder=LadderConfig(classes=(("standard", 3),),
+                                            patience=1, hi_rounds=1.0))
+    try:
+        ids = [pool.connect(seed=i) for i in range(lanes)]
+        for lane in ids:
+            pool.feed(lane, xy, ts)
+        seen = []
+        decide = pool.scheduler.decide
+        pool.scheduler.decide = lambda obs: seen.append(obs) or decide(obs)
+        held = pool._states.ctrl
+        held_values = [leaf.copy() for leaf in held]
+        pool.pump_rounds(1)
+        for leaf, value in zip(held, held_values):
+            np.testing.assert_array_equal(leaf, value)
+        assert [int(pool._states.ctrl.lut_every[lane]) for lane in ids] \
+            == [cfg.lut_every_chunks * 4] * lanes
+        assert pool.pool_stats()["ctrl_batched_writes"] == int(lanes > 1)
+        pool.pump_rounds(1)
+        assert [lob.tier for lob in seen[0].lanes] == [0] * lanes
+        assert [lob.tier for lob in seen[1].lanes] == [1] * lanes
+    finally:
+        pool.close()

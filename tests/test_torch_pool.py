@@ -14,7 +14,7 @@ import _torch_pool_harness as hx  # noqa: E402
 from _torch_pool_harness import one_torch_thread  # noqa: E402,F401
 from repro_torch.core import pipeline as tp  # noqa: E402
 from repro_torch.core import state as ts_  # noqa: E402
-from repro_torch.serve import DetectorPool  # noqa: E402
+from repro_torch.serve import DetectorPool, LadderConfig  # noqa: E402
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -131,14 +131,19 @@ def test_pool_refusals():
         DetectorPool(tc, capacity=2, buckets=(128, 16384))
     with pytest.raises(ValueError, match="single card"):
         DetectorPool(tc, capacity=2, shard=True)
-    for policy in ("ladder", "pack"):
-        with pytest.raises(NotImplementedError, match="M8b"):
-            DetectorPool(tc, capacity=2, policy=policy)
-    with pytest.raises(NotImplementedError, match="M8b"):
-        DetectorPool(tc, capacity=2, ladder=object())
-    pool = DetectorPool(tc, capacity=2, policy="adaptive")
-    assert pool.policy == "adaptive"
+    for policy in ("adaptive", "ladder", "pack"):
+        pool = DetectorPool(tc, capacity=2, policy=policy)
+        assert pool.policy == policy
+        pool.close()
+    with pytest.raises(ValueError, match="lo_rounds"):
+        LadderConfig(hi_rounds=1.0, lo_rounds=2.0)
+    pool = DetectorPool(tc, capacity=2, policy="ladder",
+                        ladder=LadderConfig(classes=(("gold", 0),)))
+    with pytest.raises(ValueError, match="unknown QoS class"):
+        pool.connect(qos="standard")
     pool.close()
+    with pytest.raises(ValueError, match="policy"):
+        DetectorPool(tc, capacity=2, policy="greedy")
     with pytest.raises(ValueError, match="incompatible with streaming"):
         DetectorPool(dataclasses.replace(tc, dvfs=True), capacity=2)
     pool = DetectorPool(tc, capacity=1, drain_mode="sync")

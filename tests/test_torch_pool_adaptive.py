@@ -28,6 +28,7 @@ from repro_torch.core import pipeline as tp  # noqa: E402
 from repro_torch.core import state as ts_  # noqa: E402
 from repro_torch.events import synthetic  # noqa: E402
 from repro_torch.serve import AdaptiveScheduler, DetectorPool  # noqa: E402
+from repro_torch.serve import DegradationLadder, PackScheduler  # noqa: E402
 from repro_torch.serve import StaticScheduler, StreamingDetector  # noqa: E402
 from repro_torch.serve import runtime as runtime_mod  # noqa: E402
 from repro_torch.serve.scheduler import make_scheduler  # noqa: E402
@@ -438,9 +439,8 @@ def test_adaptive_scheduler_contract():
                 dict(up_margin=0.0)):
         with pytest.raises(ValueError):
             AdaptiveScheduler(BUCKETS, **bad)
-    for policy in ("ladder", "pack"):
-        with pytest.raises(NotImplementedError, match="M8b"):
-            make_scheduler(policy, BUCKETS)
+    assert isinstance(make_scheduler("ladder", BUCKETS), DegradationLadder)
+    assert isinstance(make_scheduler("pack", BUCKETS), PackScheduler)
     with pytest.raises(ValueError, match="policy"):
         make_scheduler("greedy", BUCKETS)
 
