@@ -82,6 +82,30 @@ checkout of this repository.  Phases, each printing its own lines:
      padding than the same feeds never packed and a packed lane equal to
      its ``rebucket`` replay; the pack run and an 8-half-window prefix of
      the ladder run equal to the same pools on the CPU;
+  6d. the serving CLI (``repro_torch.launch.serve_events.main``) at the
+     DAVIS240 sensor with ``--dvfs``, 16 sessions over 200 ms on
+     ``fused``: ``--policy static`` (async dense and compact), ``adaptive
+     --buckets 64,256,1024 --connect-chunk 64``, ``ladder --burst-factor 2
+     --qos standard,premium --slab 1024`` and ``pack --buckets
+     64,256,1024``, then a static run on ``--backend nmc`` and one on
+     ``batched`` at 4 sessions (K4, K5): kev/s, serving-round p50/p99,
+     rounds per fetch, D2H MB, migrations, ladder transitions, pack moves
+     and K1-K5 launches per run (one K3 push per pool round); then every
+     run again at 4 sessions over 20 ms on the card and on the CPU, equal
+     in the metrics records apart from wall clocks, the log lines, the
+     lane report (bucket, qos, tier, migrations, log) and the executors;
+     the quickstart on the card, its lines equal to the CPU run's (PR-AUC
+     within 1e-3);
+  6e. the fleet scenarios (``repro_torch.benchmarks.scenarios``):
+     ``rows(smoke=True)`` equal to ``benchmarks/BENCH_smoke_baseline.json``
+     in every row but the ``p99`` ones, then each scenario at full size,
+     timed, its structural rows equal to the reference's full-size run
+     (``benchmarks/BENCH_serving.json``);
+  6f. the serving bench (``repro_torch.benchmarks.bench_streaming``):
+     ``rows(smoke=True)`` with the baseline's row names and its 32
+     structural rows equal to the baseline's, then the full-size rows
+     (pools of 1, 4 and 16), printed, their structural rows equal to the
+     reference's full-size run;
   7. per-kernel times beside the plain versions' times and a bound from
      bytes and operations (K3's ring push also by host time per push over
      back-to-back pushes ending in a synchronise): CUDA events over
@@ -1689,6 +1713,296 @@ def close(got, want):
     return err
 
 
+# --- 6d-6f: the user-facing entry points (the serving CLI, the fleet
+# scenarios, the serving bench), each as a user calls it.
+
+# Phase 6d's CLI runs, each beside the flags they share.  The ladder's slab
+# is 1,024 events: at the CLI's default 400 a lane never holds more than two
+# ready rounds when a pass starts, which is not above the ladder's
+# ``hi_rounds`` of 2.0, so the ladder would never climb.
+CLI_RUNS = (
+    ("static async dense", ["--policy", "static"]),
+    ("static async compact", ["--policy", "static", "--readout", "compact"]),
+    ("adaptive", ["--policy", "adaptive", "--buckets", "64,256,1024",
+                  "--connect-chunk", "64"]),
+    ("ladder", ["--policy", "ladder", "--burst-factor", "2",
+                "--qos", "standard,premium", "--slab", "1024"]),
+    ("pack", ["--policy", "pack", "--buckets", "64,256,1024"]),
+    ("nmc", ["--policy", "static", "--backend", "nmc"]),
+    ("batched", ["--policy", "static", "--backend", "batched"]),
+)
+# The runs that take the backend's own sessions instead of the full count.
+CLI_BACKEND_RUNS = ("nmc", "batched")
+CLI_LANE = r"^  lane (\d+): bucket (\d+), qos (\S+) \(tier (\d+)\), " \
+    r"rate est .*?, (\d+) migration\(s\) (.*)$"
+CLI_EVENT = r"^  \[(backpressure|migration|ladder)\] "
+SERVED = r"^served \d+ sessions / (\d+) events in "
+# A structural bench row: a count or a ratio of counts, fixed by the sizes
+# and the seed (the rest are wall time).
+STRUCTURAL = (r"(_fetches_per_round|_rounds_per_fetch|_d2h_bytes_\w+"
+              r"|_migration_(count|padding_saved_ratio|padding_saved_mb"
+              r"|rounds_per_fetch)|_pump_stage_overlap_ratio|_pack_\w+"
+              r"|_overload_ladder_transitions)$")
+
+
+def run_cli(argv, path):
+    """``serve_events.main(argv)`` with its JSONL trail at ``path`` and its
+    report captured; returns what phase 6d reads from one run."""
+    import contextlib
+    import io
+    import re
+    from repro_torch.launch import serve_events
+    from repro_torch.obs import read_jsonl
+    path.unlink(missing_ok=True)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        dt, lat = serve_events.main([*argv, "--metrics-out", str(path)])
+    lines = buf.getvalue().splitlines()
+    records = read_jsonl(path)
+    served = [int(m.group(1)) for m in map(re.compile(SERVED).match, lines)
+              if m]
+    lanes = [m.groups() for m in map(re.compile(CLI_LANE).match, lines) if m]
+    if len(served) != 1 or not records or not lanes:
+        raise AssertionError(f"malformed CLI report for {argv}")
+    return dict(dt=dt, lat=lat, events=served[0], records=records,
+                lanes=lanes,
+                log=[ln for ln in lines if re.match(CLI_EVENT, ln)],
+                compiled=[ln for ln in lines
+                          if ln.startswith("compiled executors")])
+
+
+def same_cli_runs(got, want, what):
+    """Two CLI runs: equal records apart from wall clocks, equal log lines,
+    lane reports and executors."""
+    from repro_torch.obs.schema import steady_record
+    for key in ("log", "lanes", "compiled"):
+        if got[key] != want[key]:
+            raise AssertionError(f"{what}: {key} differ: {got[key]} vs "
+                                 f"{want[key]}")
+    if [steady_record(r) for r in got["records"]] != \
+            [steady_record(r) for r in want["records"]]:
+        raise AssertionError(f"{what}: metrics records differ")
+
+
+def cli_phase(smi, *, device, sessions=16, duration_us=200_000,
+              backend_sessions=4, hold_sessions=4, hold_us=20_000):
+    """Phase 6d: ``serve_events.main`` on ``device`` at the DAVIS240
+    sensor, ``--dvfs``: every run of ``CLI_RUNS`` at ``sessions`` sessions
+    (the backend runs at ``backend_sessions``) over ``duration_us``, then
+    each again at ``hold_sessions`` x ``hold_us`` on ``device`` and on the
+    CPU, held equal.  Returns the launch counts of the full runs.  Smaller
+    arguments rehearse it on the CPU."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    t_phase = time.perf_counter()
+    out_dir = ROOT / "build" / "cli"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / "metrics.jsonl"
+    common = ["--dvfs", "--device", device]
+    # warm-up: first launches load the kernels and the pinned allocator
+    run_cli([*common, "--sessions", "2", "--duration-us", "6000"], path)
+    totals = {k: 0 for k in ops.LAUNCHES}
+    for name, flags in CLI_RUNS:
+        n = backend_sessions if name in CLI_BACKEND_RUNS else sessions
+        ops.reset_launch_counts()
+        r = run_cli([*common, *flags, "--sessions", str(n), "--duration-us",
+                     str(duration_us)], path)
+        launches = dict(ops.LAUNCHES)
+        for k in totals:
+            totals[k] += launches[k]
+        rec = r["records"][-1]
+        met, sched = rec["metrics"], rec.get("scheduler", {})
+        rounds, fetches = met["rounds_executed"], met["host_fetches"]
+        backend = flags[flags.index("--backend") + 1] \
+            if "--backend" in flags else "fused"
+        if device != "cpu":
+            step = {"fused": "fused_step", "nmc": "nmc",
+                    "batched": "batched"}[backend]
+            if min(launches[step], launches["harris"]) <= 0:
+                raise AssertionError(f"[cli] {name}: a kernel was not "
+                                     f"launched: {launches}")
+            if launches["compact"] != rounds:
+                raise AssertionError(
+                    f"[cli] {name}: {launches['compact']} K3 pushes for "
+                    f"{rounds} rounds")
+        lat = r["lat"]
+        print(f"[cli] {smi}: {name} ({backend}) x{n} sessions, "
+              f"{duration_us} us: {r['events']} events in {r['dt']:.3f} s = "
+              f"{r['events'] / r['dt'] / 1e3:.1f} kev/s; serving round p50 "
+              f"{np.percentile(lat, 50):.3f} p99 {np.percentile(lat, 99):.3f}"
+              f" ms over {len(lat)}; {rounds} pool rounds (wall "
+              f"{r['dt'] / rounds * 1e3:.3f} ms per pool round) / {fetches} "
+              f"fetches = {rounds / max(fetches, 1):.2f} rounds per fetch; D2H "
+              f"{met['d2h_bytes'] / 1e6:.3f} MB; migrations "
+              f"{met['migrations_total']}, ladder transitions "
+              f"{sched.get('ladder_transitions', 0)} (level "
+              f"{sched.get('ladder_level', 0)}/"
+              f"{sched.get('ladder_max_level', 0)} at exit), pack moves "
+              f"{sched.get('pack_moves', 0)}; launches K1 "
+              f"{launches['fused_step']} K2 {launches['harris']} K3 "
+              f"{launches['compact']} K4 {launches['nmc']} K5 "
+              f"{launches['batched']}; {len(r['log'])} log lines")
+        for line in r["log"][:6]:
+            print(f"[cli]   {line.strip()}")
+    for name, flags in CLI_RUNS:
+        argv = [*flags, "--dvfs", "--sessions", str(hold_sessions),
+                "--duration-us", str(hold_us)]
+        got = run_cli([*argv, "--device", device], path)
+        want = run_cli([*argv, "--device", "cpu"], path)
+        same_cli_runs(got, want, f"[cli] {name}")
+        print(f"[cli] {name} x{hold_sessions} sessions, {hold_us} us: "
+              f"{device} = CPU (records apart from wall clocks, "
+              f"{len(got['log'])} log lines, lanes {got['lanes']}, "
+              f"executors)")
+    print(f"[cli] launches on the CLI paths: {totals}; phase took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return totals
+
+
+def quickstart_phase(smi, *, device):
+    """The quickstart on ``device`` against the same run on the CPU: every
+    printed line equal but PR-AUC's, PR-AUC within 1e-3.  Returns the
+    launch counts of the ``device`` run."""
+    import contextlib
+    import io
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels import ops
+    out = {}
+    for dev in (device, "cpu"):
+        ops.reset_launch_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = quickstart.main(dev)
+        out[dev] = (res, buf.getvalue().splitlines(),
+                    time.perf_counter() - t0, dict(ops.LAUNCHES))
+    (got, lines, wall, launches), (want, want_lines, _, _) = \
+        out[device], out["cpu"]
+    if [ln for ln in lines if not ln.startswith("PR-AUC")] != \
+            [ln for ln in want_lines if not ln.startswith("PR-AUC")] or \
+            abs(got["pr_auc"] - want["pr_auc"]) > 1e-3:
+        raise AssertionError(f"[quickstart] {device} differs from the CPU: "
+                             f"{lines} vs {want_lines}")
+    print(f"[quickstart] {smi}: {device} run {wall:.3f} s, lines equal to "
+          f"the CPU run, PR-AUC {got['pr_auc']:.6f} (CPU "
+          f"{want['pr_auc']:.6f}); launches {launches}")
+    if device != "cpu" and min(launches["fused_step"],
+                               launches["harris"]) <= 0:
+        raise AssertionError(f"a kernel was not launched: {launches}")
+    return launches
+
+
+def _baseline_rows(module, name="BENCH_smoke_baseline.json"):
+    """The reference's rows of ``module`` in ``benchmarks/<name>``."""
+    rows = json.loads((ROOT / "benchmarks" / name).read_text())["rows"]
+    return {k: v for k, v in rows.items() if v["module"] == module}
+
+
+def _compare_full(tag, rows, module, structural):
+    """Hold the full-size rows that ``structural`` picks equal to the
+    reference's full-size run (``benchmarks/BENCH_serving.json``)."""
+    base = _baseline_rows(module, "BENCH_serving.json")
+    picked = {n: v for n, _, v in rows if structural(n) and n in base}
+    differ = {n: (v, base[n]["derived"]) for n, v in picked.items()
+              if v != base[n]["derived"]}
+    if differ or not picked:
+        raise AssertionError(f"{tag} full-size rows differ from "
+                             f"benchmarks/BENCH_serving.json (port, "
+                             f"reference): {differ}")
+    print(f"{tag} full size: {len(picked)} structural rows equal to "
+          f"benchmarks/BENCH_serving.json (the reference's full-size run)")
+
+
+def scenarios_phase(smi, *, device, full=True):
+    """Phase 6e: the fleet scenarios on ``device``: ``rows(smoke=True)``
+    equal to the smoke baseline in every row but the ``p99`` ones, then
+    each scenario at full size, timed.  Returns the launch counts."""
+    from repro_torch.benchmarks import scenarios
+    from repro_torch.kernels import ops
+    base = _baseline_rows("scenarios(slo)")
+    t_phase = time.perf_counter()
+    ops.reset_launch_counts()
+    rows = scenarios.rows(smoke=True, device=device)
+    if {n for n, _, _ in rows} != set(base):
+        raise AssertionError("[scenarios] row names differ from the "
+                             "baseline's")
+    for name, _, value in rows:
+        if "_p99_" not in name and value != base[name]["derived"]:
+            raise AssertionError(f"[scenarios] {name}: {value} vs the "
+                                 f"baseline's {base[name]['derived']}")
+    print(f"[scenarios] smoke on {device}: {len(rows)} rows, every non-p99 "
+          f"row equal to benchmarks/BENCH_smoke_baseline.json")
+    if full:
+        full_rows = []
+        for name in scenarios.SCENARIOS:
+            t0 = time.perf_counter()
+            got = scenarios.rows(device=device, only=[name])
+            wall = time.perf_counter() - t0
+            full_rows += got
+            print(f"[scenarios] {smi}: {name} full size {wall:.3f} s: " +
+                  ", ".join(f"{n.split('_slo_')[1]} {v:.10g}"
+                            for n, _, v in got))
+        _compare_full("[scenarios]", full_rows, "scenarios(slo)",
+                      lambda n: "_p99_" not in n)
+    launches = dict(ops.LAUNCHES)
+    print(f"[scenarios] launches: {launches}; phase took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    if device != "cpu" and min(launches[k] for k in (
+            "fused_step", "harris", "compact")) <= 0:
+        raise AssertionError(f"a kernel was not launched: {launches}")
+    return launches
+
+
+def bench_streaming_phase(smi, *, device, full=True):
+    """Phase 6f: the serving bench on ``device``: ``rows(smoke=True)`` with
+    the baseline's row names (the fused-stream rows measured instead of
+    ``_skipped`` on the card) and every structural row equal to the
+    baseline's, then the full-size rows.  Returns the launch counts."""
+    import re
+    from repro_torch.benchmarks import bench_streaming
+    from repro_torch.kernels import ops
+    structural = re.compile(STRUCTURAL).search
+    base = _baseline_rows("streaming(serving)")
+    on_card = device != "cpu"
+    t_phase = time.perf_counter()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rows = bench_streaming.rows(smoke=True, device=device)
+    wall = time.perf_counter() - t0
+    names = {n if not (on_card and n.startswith("stream_fused_")) else
+             n + "_skipped" for n, _, _ in rows}
+    if names != set(base):
+        raise AssertionError(f"[bench_streaming] row names differ from the "
+                             f"baseline's: {sorted(names ^ set(base))}")
+    n_struct = 0
+    for name, _, value in rows:
+        if structural(name):
+            n_struct += 1
+            if value != base[name]["derived"]:
+                raise AssertionError(
+                    f"[bench_streaming] {name}: {value} vs the baseline's "
+                    f"{base[name]['derived']}")
+    print(f"[bench_streaming] smoke on {device} ({wall:.1f} s): {len(rows)}"
+          f" rows, {n_struct} structural rows equal to "
+          f"benchmarks/BENCH_smoke_baseline.json")
+    if full:
+        t0 = time.perf_counter()
+        full_rows = bench_streaming.rows(device=device)
+        print(f"[bench_streaming] {smi}: full size on {device} in "
+              f"{time.perf_counter() - t0:.1f} s (name,us_per_call,derived):")
+        for name, us, value in full_rows:
+            print(f"[bench_streaming]   {name},{us:.3f},{value:.10g}")
+        _compare_full("[bench_streaming]", full_rows, "streaming(serving)",
+                      structural)
+    launches = dict(ops.LAUNCHES)
+    print(f"[bench_streaming] launches: {launches}; phase took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    if on_card and min(launches[k] for k in (
+            "fused_step", "harris", "compact")) <= 0:
+        raise AssertionError(f"a kernel was not launched: {launches}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1852,6 +2166,12 @@ def main() -> int:
 
     # --- 6c. the ladder and pack pools: the per-pump control loop -------
     ladder_launches = ladder_phase(smi, device="cuda")
+
+    # --- 6d-6f. the entry points: CLI, fleet scenarios, serving bench ---
+    cli_launches = cli_phase(smi, device="cuda")
+    quick_launches = quickstart_phase(smi, device="cuda")
+    scenario_launches = scenarios_phase(smi, device="cuda")
+    bench_launches = bench_streaming_phase(smi, device="cuda")
 
     # --- 7. times at the main path's shapes ----------------------------
     # K1 as the main path calls it: in place on a state it owns, each call
@@ -2017,8 +2337,11 @@ def main() -> int:
     profile_hd(smi, "HD", hd, hd_cfg, {
         "K1 fused_step.cu": K1_KERNELS, "K2 harris.cu": ("harris_kernel",)})
 
+    entry_points = (cli_launches, quick_launches, scenario_launches,
+                    bench_launches)
     launches = {k: batch_launches[k] + serve_launches[k]
                 + adaptive_launches[k] + ladder_launches[k]
+                + sum(d[k] for d in entry_points)
                 for k in serve_launches}
     kernels = [
         {"name": "fused_step", "route": "cuda",
@@ -2057,7 +2380,9 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{src}.cu",
             "replaces": f"src/repro/kernels/tos_update.py:{replaces[mode]}",
-            "launches": tos_launches[mode], "max_abs_err": max(
+            "launches": tos_launches[mode]
+            + sum(d[mode] for d in entry_points),
+            "max_abs_err": max(
                 k47_err, k57_err if src == "tos_count" else k46_err),
             **tos_t[mode]})
     print(smi)

@@ -68,6 +68,20 @@ class DvfsTrace:
     energy_pj: np.ndarray        # dynamic energy spent in the window
     dropped: np.ndarray          # events dropped (rate > capacity)
 
+    def avg_power_mw(self) -> float:
+        """Dynamic plus leakage power over the trace, leakage scaled by Vdd
+        and weighted by each window's length."""
+        dt_us = np.diff(self.window_t_us, prepend=0.0)
+        total_t_us = max(float(self.window_t_us[-1]), 1e-9)
+        leak_mw = np.sum(
+            hwmodel.PARAMS.leak_mw_at_12 * (self.vdd / 1.2) * dt_us
+        ) / total_t_us
+        return float(np.sum(self.energy_pj) * 1e-6 / total_t_us + leak_mw)
+
+    def drop_rate(self, total_events: int) -> float:
+        """Share of ``total_events`` dropped because rate exceeded capacity."""
+        return float(np.sum(self.dropped)) / max(total_events, 1)
+
 
 def _pick_np(est_meps: np.ndarray, caps: np.ndarray,
              headroom: float) -> np.ndarray:

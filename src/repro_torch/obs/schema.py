@@ -25,6 +25,7 @@ __all__ = [
     "POLICY_STATS",
     "SESSION_STATS",
     "WALL_TIME_KEYS",
+    "steady_record",
     "stats_reference_table",
 ]
 
@@ -153,6 +154,16 @@ WALL_TIME_KEYS = frozenset({
     "pump_stage_s",
     "pump_stage_hidden_s",
 })
+
+
+def steady_record(record: dict) -> dict:
+    """An emitted metrics record without its wall clocks: ``t_wall`` and
+    every metric named in ``WALL_TIME_KEYS``, labelled or not.  Two replays
+    of the same run emit equal steady records."""
+    metrics = {k: v for k, v in record.get("metrics", {}).items()
+               if k.split("{")[0] not in WALL_TIME_KEYS}
+    return {**{k: v for k, v in record.items() if k != "t_wall"},
+            "metrics": metrics}
 
 
 def describe(table: str, key: str) -> str:

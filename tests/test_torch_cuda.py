@@ -578,3 +578,43 @@ def test_ladder_and_pack_pools_on_cuda_equal_cpu(cuda, policy, readout):
     for key in wps:
         if key not in WALL_TIME_KEYS and key != "h2d_pinned_staging":
             assert gps[key] == wps[key], key
+
+
+_CLI_RUNS = {
+    "static": ["--policy", "static"],
+    "adaptive": ["--policy", "adaptive", "--buckets", "64,256,1024",
+                 "--connect-chunk", "64", "--migrate-patience", "1"],
+    "ladder_compact": ["--policy", "ladder", "--burst-factor", "2",
+                       "--qos", "standard,premium", "--slab", "1024",
+                       "--readout", "compact"],
+}
+
+
+@pytest.mark.parametrize("name", sorted(_CLI_RUNS))
+def test_serving_cli_on_cuda_equals_cpu(cuda, name, tmp_path, capsys):
+    """``serve_events.main`` on the card and on the CPU: equal metrics
+    records apart from wall clocks and an equal report apart from times;
+    the card run pushes one K3 launch per pool round."""
+    import re
+    from repro_torch.launch import serve_events
+    from repro_torch.obs import read_jsonl
+    from repro_torch.obs.schema import steady_record
+    local = re.compile(r"^(served|round latency|pump drain wait|metrics "
+                       r"trail|  \[pool:)")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        path = tmp_path / f"{dev}.jsonl"
+        ops.reset_launch_counts()
+        serve_events.main(["--sessions", "2", "--duration-us", "6000",
+                           "--dvfs", *_CLI_RUNS[name], "--device", dev,
+                           "--metrics-out", str(path)])
+        lines = capsys.readouterr().out.splitlines()
+        out[dev] = ([steady_record(r) for r in read_jsonl(path)],
+                    [ln for ln in lines
+                     if not local.match(ln) and "rate est" not in ln],
+                    [re.sub(r"rate est .*?\), ", "", ln) for ln in lines
+                     if "rate est" in ln], dict(ops.LAUNCHES))
+    assert out["cuda"][:3] == out["cpu"][:3]
+    rounds = out["cuda"][0][-1]["metrics"]["rounds_executed"]
+    assert out["cuda"][3]["compact"] == rounds
+    assert out["cuda"][3]["fused_step"] > 0

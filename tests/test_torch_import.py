@@ -1,5 +1,7 @@
 """The port stands alone: importing ``repro_torch`` (every submodule) loads
-no jax, and no port file nor ``chip_smoke.py`` imports ``repro`` or jax."""
+no jax, nothing of ``repro`` and nothing of the reference's top-level
+``benchmarks`` package, and no port file nor ``chip_smoke.py`` imports
+them."""
 import ast
 import os
 import subprocess
@@ -38,7 +40,9 @@ def test_port_has_the_slice_modules():
                  "kernels.tos_update",
                  "obs.metrics", "obs.sinks", "obs.schema", "obs.d2h",
                  "launch.sharding", "serve.streaming", "serve.scheduler",
-                 "serve.runtime", "serve.pool"):
+                 "serve.runtime", "serve.pool", "launch.serve_events",
+                 "examples.quickstart", "benchmarks.bench_streaming",
+                 "benchmarks.scenarios", "benchmarks.run"):
         assert "repro_torch." + name in MODULES
     for src in ("fused_step", "harris", "compact", "tos_update", "tos_count"):
         assert (PORT / "csrc" / f"{src}.cu").is_file()
@@ -50,7 +54,8 @@ def test_import_loads_no_jax():
         f"for m in {['repro_torch', *MODULES]!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro',\n"
+        "                                    'benchmarks'))\n"
         "assert not bad, bad\n"
         "print('clean')\n"
     )
@@ -67,4 +72,5 @@ def test_import_loads_no_jax():
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_no_reference_imports(path):
-    assert not _imported_roots(path) & {"repro", "jax", "jaxlib"}
+    assert not _imported_roots(path) & {"repro", "jax", "jaxlib",
+                                        "benchmarks"}

@@ -12,7 +12,7 @@ torch = pytest.importorskip("torch")
 
 import _torch_pool_harness as hx  # noqa: E402
 from _torch_pool_harness import one_torch_thread  # noqa: E402,F401
-from repro_torch.obs.schema import WALL_TIME_KEYS  # noqa: E402
+from repro_torch.obs.schema import steady_record  # noqa: E402
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -104,15 +104,7 @@ def test_emit_metrics_record_matches_reference(warmed):
     assert rec["kind"] == "pool"
     assert rec["scheduler"] == want["scheduler"] == {"policy": "static"}
 
-    def steady(r):
-        """The record without its wall clocks: ``t_wall`` and every
-        metric named in ``WALL_TIME_KEYS``, labelled or not."""
-        metrics = {k: v for k, v in r["metrics"].items()
-                   if k.split("{")[0] not in WALL_TIME_KEYS}
-        return {**{k: v for k, v in r.items() if k != "t_wall"},
-                "metrics": metrics}
-
-    hx.assert_stats_equal(steady(rec), steady(want))
+    hx.assert_stats_equal(steady_record(rec), steady_record(want))
     assert t["sink"] == [rec]
     assert len(j["sink"]) == 1
 
