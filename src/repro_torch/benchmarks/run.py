@@ -5,14 +5,19 @@ the modules the port has.
         [--device cpu] [--json-out PATH]
 
 Prints ``name,us_per_call,derived`` CSV, as the reference's runner does,
-from ``bench_streaming`` (module label ``streaming(serving)``) and
-``scenarios`` (``scenarios(slo)``).  Rows whose name ends in ``_skipped``
+from ``bench_hwmodel`` (module label ``hwmodel(fig9,fig10)``),
+``bench_throughput`` (``throughput(fig1b,fig10d)``), ``bench_dvfs``
+(``dvfs(tableI,fig8)``), ``bench_auc`` (``auc(fig11)``),
+``bench_streaming`` (``streaming(serving)``) and ``scenarios``
+(``scenarios(slo)``), in the reference's order.  Rows whose name ends in
+``_skipped``
 record a measurement this host cannot take, with 0 in both columns.
 ``--json-out`` writes the same rows in the reference's JSON shape
 (``{"smoke", "rows": {name: {"us_per_call", "derived", "module"[,
 "skipped"]}}, "errors"}``); nothing is written by default.  A module that
-raises is reported on stderr and makes the run exit non-zero.  The pools
-run on ``--device`` (the card unless the caller asks for ``cpu``).
+raises is reported on stderr and makes the run exit non-zero.  Pipelines
+and pools run on ``--device`` (the card unless the caller asks for
+``cpu``).
 """
 from __future__ import annotations
 
@@ -21,9 +26,15 @@ import json
 import sys
 import time
 
-from repro_torch.benchmarks import bench_streaming, scenarios
+from repro_torch.benchmarks import (bench_auc, bench_dvfs, bench_hwmodel,
+                                    bench_streaming, bench_throughput,
+                                    scenarios)
 
 MODULES = (
+    ("hwmodel(fig9,fig10)", bench_hwmodel),
+    ("throughput(fig1b,fig10d)", bench_throughput),
+    ("dvfs(tableI,fig8)", bench_dvfs),
+    ("auc(fig11)", bench_auc),
     ("streaming(serving)", bench_streaming),
     ("scenarios(slo)", scenarios),
 )

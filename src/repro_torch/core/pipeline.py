@@ -10,7 +10,9 @@ timestamp rebase, precomputed DVFS riders), uploads it once, folds every
 chunk with ``state.detector_step`` on the configured device, and fetches the
 results in one transfer (``host_syncs == 1``).  ``run_pipeline_batched``
 does the same for B equal-length streams as B lanes of one state, so each
-chunk is one kernel launch for all lanes.
+chunk is one kernel launch for all lanes.  ``run_pipeline_reference`` is
+the original chunk-by-chunk host loop, kept as the oracle the scan is held
+to (it blocks the host several times per chunk).
 
 Backends, each the twin of a reference backend: ``"fused"`` (default;
 ``"pallas_fused"``) runs the chunk block as kernel K1; ``"nmc"``
@@ -28,9 +30,13 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core import ber as ber_mod
 from repro_torch.core import dvfs as dvfs_mod
+from repro_torch.core import harris as harris_mod
 from repro_torch.core import hwmodel
+from repro_torch.core import prng
 from repro_torch.core import state as state_mod
+from repro_torch.core import stcf as stcf_mod
 from repro_torch.events import stream as stream_mod
 
 __all__ = [
@@ -40,12 +46,10 @@ __all__ = [
     "chunk_ts_base",
     "run_pipeline",
     "run_pipeline_batched",
+    "run_pipeline_reference",
 ]
 
-BACKENDS = ("fused", "torch", "nmc", "batched")
-# The reference's backend names, each with the port's twin.
-_TWINS = {"pallas_fused": "fused", "jnp": "torch", "pallas_nmc": "nmc",
-          "pallas_batched": "batched"}
+BACKENDS = state_mod.BACKENDS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,7 +75,7 @@ class PipelineConfig:
     )
     inject_ber: bool = False
     seed: int = 0
-    use_onehot_update: bool = False  # reference's MXU spelling; False only
+    use_onehot_update: bool = False  # one-hot TOS update on "torch"
     # execution
     backend: str = "fused"           # one of BACKENDS
     interpret: Optional[bool] = None  # reference's Pallas flag; None only
@@ -80,10 +84,6 @@ class PipelineConfig:
     def __post_init__(self):
         # The reference's field names are kept; a value that chooses a
         # spelling which exists only in the reference is refused.
-        if self.use_onehot_update:
-            raise ValueError(
-                "use_onehot_update selects the reference's one-hot MXU "
-                "spelling of the TOS update; the port has no such spelling")
         if self.interpret is not None:
             raise ValueError(
                 "interpret selects the reference's Pallas interpret mode; "
@@ -105,12 +105,7 @@ class PipelineResult:
 def _device(cfg: PipelineConfig) -> torch.device:
     """The run's device; asking for CUDA without it raises (never a silent
     CPU run)."""
-    if cfg.backend not in BACKENDS:
-        twin = _TWINS.get(cfg.backend)
-        hint = (f"it is the reference's name; the port's twin is {twin!r}"
-                if twin else f"use one of {BACKENDS}")
-        raise ValueError(f"backend {cfg.backend!r} is not in the port: "
-                         f"{hint}")
+    state_mod.check_backend(cfg.backend)
     return state_mod.resolve_device(cfg.device)
 
 
@@ -299,3 +294,97 @@ def run_pipeline(
     ``cfg.device``; the host blocks once, on the final fetch."""
     return run_pipeline_batched(np.asarray(xy)[None], np.asarray(ts_us)[None],
                                 cfg)[0]
+
+
+def run_pipeline_reference(
+    xy: np.ndarray,
+    ts_us: np.ndarray,
+    cfg: PipelineConfig = PipelineConfig(),
+) -> PipelineResult:
+    """Chunk-by-chunk host loop on ``cfg.device``: the original pipeline,
+    kept as the oracle ``run_pipeline`` is held to.
+
+    Every chunk blocks the host on its kept count, on its scores once the
+    LUT is ready, and on its kept mask; ``host_syncs`` counts those
+    transfers.  The TOS update is ``state.select_update(cfg)`` (so backend
+    ``"fused"``, which has no standalone update, raises), the BER write
+    errors draw from the same key splits as the step, in its per-lane key
+    layout, and the LUT refreshes through the scan's routine
+    (``state.lut_refresh``), so the two paths give the same bits.  Online
+    DVFS runs only inside the step; asking for it here raises.
+    """
+    if _is_online(cfg):
+        raise ValueError(
+            "online DVFS runs inside detector_step (scan/streaming paths); "
+            "the host-loop oracle only supports precomputed DVFS or fixed "
+            "vdd — it is property-tested equal to the online mode instead"
+        )
+    device = _device(cfg)
+    prep = _prepare(xy, ts_us, cfg)
+    n_chunks = prep.cxy.shape[0]
+    update = state_mod.select_update(cfg)
+    harris = state_mod.lut_refresh(cfg)
+
+    # Fresh state from the constructor the scan uses: one lane, whose key
+    # stays (1, 2) as in the step.
+    init = state_mod.detector_init(cfg, device=device)
+    surface, sae, lut = init.surface[0], init.sae[0], init.lut[0]
+    lut_ready = False
+    key = init.key
+
+    scores = np.full((n_chunks * cfg.chunk,), -np.inf, dtype=np.float32)
+    kept_all = np.zeros((n_chunks * cfg.chunk,), dtype=bool)
+    total_energy_pj = 0.0
+    total_latency_ns = 0.0
+    host_syncs = 0
+
+    for c in range(n_chunks):
+        sl = slice(c * cfg.chunk, (c + 1) * cfg.chunk)
+        cxy = state_mod.upload(prep.cxy[c], device)
+        cts = state_mod.upload(prep.cts[c], device)
+        cval = state_mod.upload(prep.cval[c], device)
+
+        sae, keep = stcf_mod.stcf_step(
+            sae, cxy, cts, cval,
+            enabled=cfg.stcf_enabled,
+            support=cfg.stcf_support, tw=cfg.stcf_tw_us,
+        )
+
+        vdd = float(prep.vdd_arr[c])
+        surface = update(surface, cxy, keep)
+
+        if cfg.inject_ber:
+            key, sub = prng.split(key)
+            ber = state_mod.upload(prep.ber[c:c + 1], device)
+            surface = ber_mod.inject_write_errors_at(sub, surface[None],
+                                                     ber)[0]
+
+        n_kept = int(keep.sum())             # per-chunk host sync
+        host_syncs += 1
+        total_energy_pj += n_kept * hwmodel.patch_energy_pj(vdd)
+        total_latency_ns += n_kept * hwmodel.patch_latency_ns(vdd)
+
+        # Tag this chunk's events against the latest available LUT.
+        if lut_ready:
+            s = harris_mod.score_events(lut, cxy, keep)
+            scores[sl] = s.cpu().numpy()
+            host_syncs += 1
+        kept_all[sl] = keep.cpu().numpy()
+        host_syncs += 1
+
+        if (c + 1) % cfg.lut_every_chunks == 0:
+            lut = harris(surface, sobel_size=cfg.sobel_size,
+                         window_size=cfg.window_size, k=cfg.harris_k)
+            lut_ready = True
+
+    n_scored = max(int(kept_all[:prep.n_events].sum()), 1)
+    return PipelineResult(
+        scores=scores[:prep.n_events],
+        kept=kept_all[:prep.n_events],
+        tos=surface.cpu().numpy(),
+        lut=lut.cpu().numpy(),
+        vdd_trace=prep.vdd_arr,
+        energy_pj=total_energy_pj,
+        latency_ns_per_event=total_latency_ns / n_scored,
+        host_syncs=host_syncs,
+    )

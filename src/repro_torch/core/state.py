@@ -32,7 +32,10 @@ surface copy per chunk.
 and LUT score, the TOS update as K4 or K5 over all lanes in one launch,
 then the BER write errors); these three refresh the LUT with the K2 kernel
 (``kernels.ops``).  ``"torch"`` runs the plain PyTorch versions on any
-device.  On CPU tensors every backend is plain PyTorch.
+device (the TOS update in its one-hot spelling when
+``cfg.use_onehot_update``).  On CPU tensors every backend is plain
+PyTorch.  ``select_update`` hands out a backend's standalone TOS update
+(the host-loop oracle's), ``lut_refresh`` its LUT routine.
 
 The random stream is JAX's threefry with the reference's key discipline
 (one split per chunk iff injecting), so BER draws are draw-exact.
@@ -60,9 +63,14 @@ from repro_torch.core import harris as harris_mod
 from repro_torch.core import hwmodel
 from repro_torch.core import prng
 from repro_torch.core import stcf as stcf_mod
+from repro_torch.core import tos as tos_mod
 from repro_torch.kernels import fused_step, ops
 
 __all__ = [
+    "BACKENDS",
+    "check_backend",
+    "select_update",
+    "lut_refresh",
     "ControlState",
     "DetectorState",
     "ChunkInput",
@@ -136,6 +144,56 @@ class ChunkOutput(NamedTuple):
     keep: torch.Tensor       # (B, E) bool — survived STCF
     n_kept: torch.Tensor     # (B,) int32
     vdd_idx: torch.Tensor    # (B,) int32 — operating point (online mode)
+
+
+BACKENDS = ("fused", "torch", "nmc", "batched")
+# The reference's backend names, each with the port's twin.
+_TWINS = {"pallas_fused": "fused", "jnp": "torch", "pallas_nmc": "nmc",
+          "pallas_batched": "batched"}
+
+
+def check_backend(backend: str) -> None:
+    """Refuse a backend the port does not have, naming the port's twin of
+    a reference backend."""
+    if backend not in BACKENDS:
+        twin = _TWINS.get(backend)
+        hint = (f"it is the reference's name; the port's twin is {twin!r}"
+                if twin else f"use one of {BACKENDS}")
+        raise ValueError(f"backend {backend!r} is not in the port: {hint}")
+
+
+def select_update(cfg) -> Callable:
+    """The standalone TOS chunk update ``(surface, xy, valid) -> surface``
+    of ``cfg.backend``: ``"torch"`` the closed form (one-hot when
+    ``cfg.use_onehot_update``), ``"nmc"`` / ``"batched"``
+    ``ops.tos_update_op`` (K4 / K5 on CUDA tensors)."""
+    check_backend(cfg.backend)
+    if cfg.backend == "fused":
+        raise ValueError(
+            "backend 'fused' fuses the whole chunk step (STCF -> TOS -> BER "
+            "-> LUT score) into one kernel — it has no standalone TOS "
+            "update; route through detector_step / run_pipeline / the "
+            "serving layer instead"
+        )
+    if cfg.backend == "torch":
+        fn = _plain_update(cfg)
+        return lambda s, xy, v: fn(s, xy, v, patch=cfg.patch, th=cfg.th)
+    return lambda s, xy, v: ops.tos_update_op(
+        s, xy, v, patch=cfg.patch, th=cfg.th, mode=cfg.backend)
+
+
+def _plain_update(cfg) -> Callable:
+    """The plain TOS update of backend ``"torch"``."""
+    return (tos_mod.tos_update_batched_onehot if cfg.use_onehot_update
+            else tos_mod.tos_update_batched)
+
+
+def lut_refresh(cfg) -> Callable:
+    """The Harris LUT routine of ``cfg.backend``: the plain
+    ``harris_response`` on ``"torch"``, else ``ops.harris_response_op``
+    (K2 on CUDA tensors)."""
+    return (harris_mod.harris_response if cfg.backend == "torch"
+            else ops.harris_response_op)
 
 
 def _online(cfg) -> bool:
@@ -267,8 +325,7 @@ def _refresh_lut(cfg, state: DetectorState, surface, due: np.ndarray):
     host decision), in one launch over just those lanes."""
     if not due.any():
         return state.lut
-    harris = (harris_mod.harris_response if cfg.backend == "torch"
-              else ops.harris_response_op)
+    harris = lut_refresh(cfg)
     kw = dict(sobel_size=cfg.sobel_size, window_size=cfg.window_size,
               k=cfg.harris_k)
     if due.all():
@@ -348,14 +405,16 @@ def _tos_update_block(tos, sae, lut, xy, ts, valid, ber=None, bits=None, *,
     return surface, torch.stack(saes), keep, torch.stack(scores)
 
 
-def _chunk_block(backend: str, inplace: bool) -> Callable:
-    """The STCF -> TOS -> BER -> score block of ``backend``; with
+def _chunk_block(cfg, inplace: bool) -> Callable:
+    """The STCF -> TOS -> BER -> score block of ``cfg.backend``; with
     ``inplace`` the fused and plain blocks update the surfaces in place."""
+    backend = cfg.backend
     if backend == "fused":
         return ops.fused_step_op_ if inplace else ops.fused_step_op
     if backend == "torch":
-        return (fused_step.fused_step_ref_ if inplace
-                else fused_step.fused_step_ref)
+        return functools.partial(
+            fused_step.fused_step_ref_ if inplace
+            else fused_step.fused_step_ref, update=_plain_update(cfg))
     if backend in ("nmc", "batched"):
         return functools.partial(_tos_update_block, mode=backend)
     raise ValueError(f"unknown backend {backend!r}")
@@ -413,7 +472,7 @@ def _step(cfg, state: DetectorState, chunk: ChunkInput,
                                         ber_c)
     lane_mask = (None if active.all()
                  else _lanes_on(active, state.surface.device))
-    surface, sae, keep, raw = _chunk_block(cfg.backend, inplace)(
+    surface, sae, keep, raw = _chunk_block(cfg, inplace)(
         state.surface, state.sae, state.lut, chunk.xy, chunk.ts,
         chunk.valid, ber_c, bits, mask=lane_mask, patch=cfg.patch,
         th=cfg.th, support=cfg.stcf_support, tw=cfg.stcf_tw_us,

@@ -11,7 +11,9 @@ form for a whole chunk:
 
 Surfaces are uint8 ``(H, W)``; events are int32 ``xy (E, 2)`` in
 (x=col, y=row) order with a bool ``valid`` mask (padding slots must be
-in-bounds dummies).
+in-bounds dummies).  ``tos_update_batched_onehot`` is the same closed form
+with ``k`` of the background counted as a one-hot matmul, as the
+reference's MXU spelling does; it is bit-equal to ``tos_update_batched``.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ __all__ = [
     "tos_new",
     "tos_update_sequential",
     "tos_update_batched",
+    "tos_update_batched_onehot",
 ]
 
 TOS_MAX = 255
@@ -123,14 +126,49 @@ def tos_update_batched(
 ) -> torch.Tensor:
     """Order-exact closed-form TOS update for one chunk of events."""
     r = (patch - 1) // 2
-    shape = tuple(tos.shape)
+    k_total = _scatter_patch_counts(tuple(tos.shape), xy, valid, r)
+    return _closed_form(tos, xy, valid, k_total, r, th)
 
-    k_total = _scatter_patch_counts(shape, xy, valid, r)
+
+def _closed_form(tos, xy, valid, k_total, r, th) -> torch.Tensor:
+    """The closed form given the background's cover counts ``k_total``:
+    the thresholded background, overlaid with the last centre writes."""
     new_bg = _clamp_threshold(tos.to(torch.int32) - k_total, th)
-
     k_after = _suffix_cover_counts(xy, valid, r)
     centre_vals = _clamp_threshold(TOS_MAX - k_after, th)
-    centre_surf = _scatter_last_center_value(shape, xy, valid, centre_vals)
-
+    centre_surf = _scatter_last_center_value(tuple(tos.shape), xy, valid,
+                                             centre_vals)
     out = torch.where(centre_surf >= 0, centre_surf, new_bg)
     return out.to(torch.uint8)
+
+
+def _onehot_band(coord: torch.Tensor, n: int, r: int,
+                 valid: torch.Tensor) -> torch.Tensor:
+    """(E, n) bool matrix: row j is true on [coord_j - r, coord_j + r]
+    (clipped) when event j is valid."""
+    grid = torch.arange(n, dtype=torch.int32, device=coord.device)[None, :]
+    return ((grid - coord.to(torch.int32)[:, None]).abs() <= r) & \
+        valid[:, None]
+
+
+def tos_update_batched_onehot(
+    tos: torch.Tensor,
+    xy: torch.Tensor,
+    valid: torch.Tensor,
+    *,
+    patch: int = DEFAULT_PATCH,
+    th: int = DEFAULT_TH,
+) -> torch.Tensor:
+    """``tos_update_batched`` with the background's cover counts as a
+    matmul of one-hot bands: patch membership is separable, so ``k_total =
+    RowBand^T @ ColBand``, an (H, E) x (E, W) product of float32 0/1
+    matrices.  Every product and partial sum is an integer below 2**24, so
+    the float32 result is exact (TF32 inputs too: 0 and 1 survive the
+    rounding) and the update is bit-equal to ``tos_update_batched``."""
+    r = (patch - 1) // 2
+    h, w = tos.shape
+    row_band = _onehot_band(xy[:, 1], h, r, valid)      # (E, H)
+    col_band = _onehot_band(xy[:, 0], w, r, valid)      # (E, W)
+    k_total = torch.matmul(row_band.to(torch.float32).T,
+                           col_band.to(torch.float32)).to(torch.int32)
+    return _closed_form(tos, xy, valid, k_total, r, th)

@@ -42,10 +42,12 @@ MAX_EVENTS = 8192   # the tile pass stages a lane's events in shared memory
 
 
 def fused_step_ref_(tos, sae, lut, xy, ts, valid, ber=None, bits=None, *,
-                    mask=None, patch, th, support, tw, stcf_enabled):
-    """Plain version, in place: ``stcf_step`` -> ``tos_update_batched`` ->
-    ``apply_write_errors`` -> LUT read, per lane; the active lanes' new
-    surfaces are copied into ``tos`` and ``sae``."""
+                    mask=None, patch, th, support, tw, stcf_enabled,
+                    update=tos_mod.tos_update_batched):
+    """Plain version, in place: ``stcf_step`` -> ``update`` (the TOS
+    update, ``tos_update_batched`` unless given) -> ``apply_write_errors``
+    -> LUT read, per lane; the active lanes' new surfaces are copied into
+    ``tos`` and ``sae``."""
     keeps, scores = [], []
     for b in range(tos.shape[0]):
         sae_b, keep = stcf_mod.stcf_step(
@@ -56,8 +58,7 @@ def fused_step_ref_(tos, sae, lut, xy, ts, valid, ber=None, bits=None, *,
         scores.append(harris_mod.score_events(lut[b], xy[b], keep))
         if mask is not None and not bool(mask[b]):
             continue
-        tos_b = tos_mod.tos_update_batched(tos[b], xy[b], keep,
-                                           patch=patch, th=th)
+        tos_b = update(tos[b], xy[b], keep, patch=patch, th=th)
         if bits is not None:
             tos_b = ber_mod.apply_write_errors(tos_b, bits[b], ber[b])
         tos[b].copy_(tos_b)

@@ -8,7 +8,8 @@ size), and returns per-event corner scores as chunks complete.
 ``flush()`` folds the partial tail, ``snapshot()`` / ``restore()``
 checkpoint the whole session (state, buffer and accounting), and
 ``rebucket()`` hops a live session to a new chunk size through the same
-path.
+path.  ``feed_device_chunk`` folds a chunk that is already on the device
+(``events.stream.PrefetchingLoader(device_slabs=True)``).
 
 Fed the same stream in any slab partition, a session produces the same
 scores, final state and float64 energy books as one ``run_pipeline`` call
@@ -181,6 +182,54 @@ class StreamingDetector:
         """Fold the buffered partial tail (padded, masked invalid)."""
         return self._drain(flush_tail=True)
 
+    def feed_device_chunk(self, xy: torch.Tensor, ts: torch.Tensor,
+                          valid: torch.Tensor
+                          ) -> tuple[np.ndarray, np.ndarray]:
+        """Fold one pre-chunked, pre-rebased chunk that is already on the
+        session's device: ``xy (chunk, 2)`` int32, ``ts (chunk,)`` int32
+        relative to the session's base, ``valid (chunk,)`` bool with the
+        valid events first.
+
+        The fast path for ``PrefetchingLoader(device_slabs=True,
+        rebase_us=session_base_us(...))``, whose worker already uploaded
+        the chunk.  Needs an empty host buffer (do not mix with partial
+        ``feed`` slabs) and the base set to the loader's ``rebase_us``.
+        Tensors on another device, of another dtype or length are refused,
+        never moved.  The step reads the tensors and writes only the
+        session's own state; the valid count comes back in the chunk's one
+        transfer.
+        """
+        if self._buf_ts.size:
+            raise RuntimeError(
+                "feed_device_chunk cannot interleave with buffered feed() "
+                "slabs; flush() first"
+            )
+        if self._base is None:
+            raise RuntimeError(
+                "set base_ts (== the loader's rebase_us) before feeding "
+                "device chunks"
+            )
+        e, device = self._cfg.chunk, self._state.surface.device
+        for name, t, dtype, shape in (("xy", xy, torch.int32, (e, 2)),
+                                      ("ts", ts, torch.int32, (e,)),
+                                      ("valid", valid, torch.bool, (e,))):
+            if not isinstance(t, torch.Tensor) or t.device != device:
+                where = t.device if isinstance(t, torch.Tensor) else type(t)
+                raise ValueError(f"{name} must be a tensor on the session's "
+                                 f"device {device}, got {where}")
+            if t.dtype != dtype or tuple(t.shape) != shape:
+                raise ValueError(
+                    f"{name} must be {dtype} of shape {shape} (the "
+                    f"session's chunk), got {t.dtype} {tuple(t.shape)}")
+        chunk = state_mod.ChunkInput(
+            xy=xy[None], ts=ts[None], valid=valid[None],
+            ber=self._riders[0], energy_coef=self._riders[1],
+            latency_coef=self._riders[2],
+        )
+        self._state, out = state_mod.detector_step_(self._tcfg, self._state,
+                                                    chunk)
+        return self._account([out], valid.sum(dtype=torch.int32)[None])
+
     # -- internals ----------------------------------------------------------
 
     def _maybe_rebase(self, chunk_ts: np.ndarray) -> None:
@@ -228,10 +277,19 @@ class StreamingDetector:
         return out
 
     def _account(self, outs, n_valids) -> tuple[np.ndarray, np.ndarray]:
+        """Fetch the folded chunks' outputs in one transfer and book them.
+        ``n_valids`` are the chunks' valid counts: host ints, or an int32
+        device tensor that rides in the same transfer (device chunks,
+        whose events the session then counts)."""
         if not outs:
             return (np.zeros((0,), np.float32), np.zeros((0,), bool))
-        scores, keep, n_kept, vdd_idx = pipeline_mod._fetch(  # one sync
-            *(torch.stack(parts) for parts in zip(*outs)))
+        counted = isinstance(n_valids, torch.Tensor)
+        scores, keep, n_kept, vdd_idx, *rest = pipeline_mod._fetch(  # 1 sync
+            *(torch.stack(parts) for parts in zip(*outs)),
+            *((n_valids,) if counted else ()))
+        if counted:
+            n_valids = [int(n) for n in rest[0]]
+            self.n_events += sum(n_valids)
         for i, n_valid in enumerate(n_valids):
             account_chunk(self, n_kept[i, 0], vdd_idx[i, 0],
                           online=self._online, tab=self._tab,

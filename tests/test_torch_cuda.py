@@ -5,6 +5,8 @@ no jax, so it also runs on a GPU host without the JAX reference:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -618,3 +620,68 @@ def test_serving_cli_on_cuda_equals_cpu(cuda, name, tmp_path, capsys):
     rounds = out["cuda"][0][-1]["metrics"]["rounds_executed"]
     assert out["cuda"][3]["compact"] == rounds
     assert out["cuda"][3]["fused_step"] > 0
+
+
+def test_loader_chunks_and_close_on_cuda(cuda):
+    """The loader's chunks on the card equal ``chunk_iterator``'s after the
+    rebase, each item fresh tensors; a half-consumed loader closes within
+    5 s with its worker dead."""
+    import time
+    from repro_torch.events import stream as stream_mod
+    st = synthetic.shapes_stream(duration_us=20_000, seed=4)
+    want = list(stream_mod.chunk_iterator(st, 256))
+    with stream_mod.PrefetchingLoader(st, 256, rebase_us=100,
+                                      device=cuda) as loader:
+        got = list(loader)
+    assert len(got) == len(want)
+    for (gx, gt, gv), (wx, wt, wv) in zip(got, want):
+        assert gx.is_cuda and gt.dtype == torch.int32
+        np.testing.assert_array_equal(gx.cpu().numpy(), wx)
+        np.testing.assert_array_equal(gt.cpu().numpy(),
+                                      (wt - 100).astype(np.int32))
+        np.testing.assert_array_equal(gv.cpu().numpy(), wv)
+    assert len({t.data_ptr() for item in got for t in item}) == 3 * len(got)
+    half = stream_mod.PrefetchingLoader(st, 64, depth=1, device=cuda)
+    next(half)
+    t0 = time.perf_counter()
+    half.close()
+    assert time.perf_counter() - t0 < 5.0 and not half._thread.is_alive()
+
+
+@pytest.mark.parametrize("backend", ["nmc", "batched"])
+def test_device_feed_and_oracle_on_cuda_equal_scan(cuda, backend):
+    """The device-slab feed and the host-loop oracle (K4 / K5 + K2) on the
+    card give the scan's (K1 + K2) outputs bit for bit."""
+    from repro_torch.events import stream as stream_mod
+    from repro_torch.serve import StreamingDetector, session_base_us
+    st = synthetic.shapes_stream(duration_us=20_000, seed=0)
+    cfg = pipeline.PipelineConfig(chunk=512, lut_every_chunks=2, vdd=0.6,
+                                  inject_ber=True)
+    scan = pipeline.run_pipeline(st.xy, st.ts, cfg)
+    oracle = pipeline.run_pipeline_reference(
+        st.xy, st.ts, dataclasses.replace(cfg, backend=backend))
+    for f in ("scores", "kept", "tos", "lut", "vdd_trace"):
+        np.testing.assert_array_equal(getattr(oracle, f), getattr(scan, f))
+    assert oracle.energy_pj == scan.energy_pj
+    base = session_base_us(int(st.ts[0]), cfg)
+    det = StreamingDetector(cfg, base_ts=base)
+    with stream_mod.PrefetchingLoader(st, cfg.chunk, device_slabs=True,
+                                      rebase_us=base, device=cuda) as ld:
+        scores = np.concatenate([det.feed_device_chunk(*c)[0] for c in ld])
+    np.testing.assert_array_equal(scores, scan.scores)
+    assert det.energy_pj == scan.energy_pj
+
+
+def test_onehot_update_on_cuda_is_bit_equal(cuda):
+    from repro_torch.core import tos as t_tos
+    rng = np.random.default_rng(0)
+    h, w, e = 180, 240, 1024
+    xy = torch.as_tensor(np.stack([rng.integers(0, w, e),
+                                   rng.integers(0, h, e)], 1),
+                         dtype=torch.int32, device=cuda)
+    valid = torch.as_tensor(rng.random(e) < 0.9, device=cuda)
+    surf = torch.as_tensor(np.where(rng.random((h, w)) < 0.5,
+                                    rng.integers(200, 256, (h, w)), 0),
+                           dtype=torch.uint8, device=cuda)
+    assert torch.equal(t_tos.tos_update_batched_onehot(surf, xy, valid),
+                       t_tos.tos_update_batched(surf, xy, valid))

@@ -42,7 +42,10 @@ def test_port_has_the_slice_modules():
                  "launch.sharding", "serve.streaming", "serve.scheduler",
                  "serve.runtime", "serve.pool", "launch.serve_events",
                  "examples.quickstart", "benchmarks.bench_streaming",
-                 "benchmarks.scenarios", "benchmarks.run"):
+                 "benchmarks.scenarios", "benchmarks.run",
+                 "events.datasets", "examples.corner_detection_e2e",
+                 "benchmarks.bench_hwmodel", "benchmarks.bench_dvfs",
+                 "benchmarks.bench_auc", "benchmarks.bench_throughput"):
         assert "repro_torch." + name in MODULES
     for src in ("fused_step", "harris", "compact", "tos_update", "tos_count"):
         assert (PORT / "csrc" / f"{src}.cu").is_file()

@@ -179,6 +179,35 @@ def test_streaming_feed_and_snapshot_leave_callers_state():
         assert torch.equal(getattr(again.state, f), getattr(det.state, f))
 
 
+def test_feed_device_chunk_leaves_loader_tensors_and_held_state():
+    """``feed_device_chunk`` reads the loader's tensors and steps only the
+    session's own state: the chunk tensors and a state read from
+    ``.state`` before the feed are unchanged after it, while the session's
+    surfaces move."""
+    from repro_torch.events import stream as stream_mod
+    from repro_torch.serve import session_base_us
+    cfg = _cfg("dvfs_online")
+    st = synthetic.shapes_stream(height=H, width=W, duration_us=40_000,
+                                 n_shapes=2, seed=2)
+    base = session_base_us(int(st.ts[0]), cfg)
+    det = StreamingDetector(cfg, seed=5, base_ts=base)
+    held, n = det.state, 0
+    before = _clone(held)
+    with stream_mod.PrefetchingLoader(st, CHUNK, device_slabs=True,
+                                      rebase_us=base, device="cpu") as ld:
+        for xy, ts, valid in ld:
+            copies = [t.clone() for t in (xy, ts, valid)]
+            det.feed_device_chunk(xy, ts, valid)
+            for t, c in zip((xy, ts, valid), copies):
+                assert torch.equal(t, c)
+            n += 1
+            if n == 4:
+                break
+    _assert_unchanged(held, before)
+    assert not torch.equal(det.state.surface, before["surface"])
+    assert det.n_chunks == 4
+
+
 def test_pool_masked_rounds_leave_inactive_lanes():
     """A ``DetectorPool`` round folds only the lanes with a full chunk:
     across rounds with churn (a lane leaves, a fresh one joins its slot),
