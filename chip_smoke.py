@@ -135,6 +135,23 @@ checkout of this repository.  Phases, each printing its own lines:
      too; the one-hot TOS update bit-equal to ``tos_update_batched`` on
      the card at ``bench_throughput``'s 180x240, E=1024 inputs; wall-time
      rows printed;
+  6j. the TOS-kernel cost model (``repro_torch.benchmarks.
+     bench_tos_kernels``) at full size: its rows with the reference's
+     names, the bin, unfused-byte and round-trip rows equal to
+     ``benchmarks/BENCH_serving.json``, the device time of K4, K6, K5 and
+     K1 (in place, no BER) on the reference's binned chunk beside each
+     bound, the launch floor, K1's op calls per chunk of a fold (the gated
+     ``fused_roundtrips_per_chunk``, 1) and its kernel launches per chunk
+     from the profiler (2: ``stcf_score_kernel``, ``fused_tile_kernel``);
+  6k. the regression gate: ``python -m repro_torch.benchmarks.run --smoke
+     --check-regression benchmarks/BENCH_smoke_baseline.json`` in its own
+     process must exit 0 with every gated baseline row checked;
+  6l. the rest of the core (M10): evFAST and evARC on the card equal to
+     the CPU and eHarris within the bound over the 80 ms shapes_dof stream,
+     each one's PR-AUC and us/event beside NMC-TOS's from 6h;
+     ``TosStream.update`` through K4-K7 equal to the plain closed form;
+     ``stcf_sequential`` equal to ``stcf_chunked`` and to the CPU; the BER
+     draws at 0.6-0.62 V and ``corner_lut`` as on the CPU;
   7. per-kernel times beside the plain versions' times and a bound from
      bytes and operations (K3's ring push also by host time per push over
      back-to-back pushes ending in a synchronise): CUDA events over
@@ -166,12 +183,15 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+# The H100's rates, the kernels' bounds and the device timers are the
+# port's own (shared with the TOS-kernel cost model); numpy and the
+# standard library only, until a function is called.
+from repro_torch.benchmarks.bounds import (k1_bound, k2_bound,  # noqa: E402
+                                           k3_bound, push_bound, tos_bound)
+from repro_torch.benchmarks.timing import (cuda_ms, device_ms,  # noqa: E402
+                                           device_split)
+
 REL = 1e-5                   # LUT / score bound: |delta| <= REL * max|ref|
-MEM_BPS = 3.35e12            # H100 SXM HBM3, bytes/s (data sheet)
-FP32_OPS = 66.9e12           # H100 SXM float32 outside the tensor cores
-FP32_ROUNDED = FP32_OPS / 2  # separately rounded adds or multiplies: the
-                             # peak counts an FMA as two operations
-INT32_OPS = 132 * 64 * 1.98e9   # 64 INT32 lanes per SM, 132 SMs, 1.98 GHz
 
 
 def nvidia_smi() -> str:
@@ -182,72 +202,8 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters=30, warmup=3) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def device_ms(fn, iters=30, warmup=3) -> float:
-    """Mean device time per call of ``fn``: the summed device time of every
-    kernel and copy it launches, from the profiler, over ``iters``
-    back-to-back calls.  Unlike ``cuda_ms`` it does not count the gaps in
-    which the device waits for the host to enqueue the next call."""
-    return device_split(fn, (), iters, warmup)[0]
-
-
-# Times per call that ``device_split`` took by CUDA events because the
-# profiler recorded nothing.
-EVENT_FALLBACKS: list[float] = []
-
 # K1's two kernels, as the profiler names them.
 K1_KERNELS = ("stcf_score_kernel", "fused_tile_kernel")
-
-
-def device_split(fn, names, iters=30, warmup=3, windows=3):
-    """``device_ms`` of ``fn`` and the device time per call of each kernel
-    whose name holds one of ``names`` (ms).  The profiler now and then
-    returns a window with no device record at all; such a window is
-    profiled again, up to ``windows`` times in all.  If every window is
-    empty, the time per call comes from CUDA events over the same loop
-    (launch gaps included, noted in ``EVENT_FALLBACKS`` and printed) and
-    each kernel's share is ``None``: not measured."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    for _ in range(windows):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        rows = [r for r in prof.key_averages()
-                if str(r.device_type).endswith("CUDA")]
-        total = sum(r.self_device_time_total for r in rows) / 1e3 / iters
-        if total > 0:
-            break
-    else:
-        total = cuda_ms(fn, iters, warmup=0)
-        EVENT_FALLBACKS.append(total)
-        print(f"[profile] the profiler recorded no device time in {windows} "
-              f"windows; {total:.5f} ms per call by CUDA events instead "
-              f"(launch gaps included)")
-        return total, {n: None for n in names}
-    per = {n: sum(r.self_device_time_total for r in rows if n in r.key)
-           / 1e3 / iters for n in names}
-    return total, per
 
 
 def k1_inputs(rng, b, h, w, e, dev, *, inject):
@@ -275,97 +231,6 @@ def k1_inputs(rng, b, h, w, e, dev, *, inject):
     keys = torch.stack([prng.prng_key(i, device=dev) for i in range(b)])
     bits = (ber_mod.write_error_bits(keys, (h, w), ber) if inject else None)
     return t, ber, bits
-
-
-def _covered(xy, mask, radius, h, w):
-    """Distinct pixels within ``radius`` (square) of the masked events, per
-    lane summed."""
-    import numpy as np
-    n = 0
-    for lane_xy, lane_m in zip(xy, mask):
-        hit = np.zeros((h, w), bool)
-        x, y = lane_xy[lane_m, 0], lane_xy[lane_m, 1]
-        for dy in range(-radius, radius + 1):
-            for dx in range(-radius, radius + 1):
-                hit[np.clip(y + dy, 0, h - 1),
-                    np.clip(x + dx, 0, w - 1)] = True
-        n += int(hit.sum())
-    return n
-
-
-def k1_bound(b, h, w, e, patch, xy, valid, keep, inject):
-    """Least time for one K1 call's work, updating the surfaces in place
-    (the step drops the old state): events read and keep/scores written
-    once; the SAE read over the valid events' 3x3 neighbourhoods and
-    written at their centres; the LUT read at the kept centres; the TOS
-    read and written over the kept patches, or over every pixel with the
-    bits when injecting.  Integer operations: nine SAE tests per event, the
-    patch writes, and four per pixel for BER.  Pixel counts are this
-    chunk's distinct ones.  Also returns the bytes of the out-of-place
-    call (both surfaces read and copied whole), for comparison."""
-    r = patch // 2
-    ev = b * e * (8 + 4 + 1) + b * e * (1 + 4)
-    nbytes = ev + 4 * _covered(xy, valid, 1, h, w)
-    nbytes += 4 * _covered(xy, valid, 0, h, w) + 4 * _covered(xy, keep, 0,
-                                                              h, w)
-    if inject:
-        nbytes += b * h * w * (1 + 4 + 1) + b * 4
-    else:
-        nbytes += 2 * _covered(xy, keep, r, h, w)
-    ops = 9 * int(valid.sum()) + int(keep.sum()) * patch * patch + (
-        b * h * w * 4 if inject else 0)
-    out_of_place = ev + b * h * w * 2 * (1 + 4) + 4 * int(keep.sum())
-    out_of_place += (b * h * w * 4 + b * 4) if inject else 0
-    t_b, t_o = nbytes / MEM_BPS, ops / INT32_OPS
-    return (max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations"),
-            out_of_place / MEM_BPS * 1e3)
-
-
-def k2_bound(b, h, w, sobel=5, window=5):
-    """Least time for one K2 call at its exact rounding contract: tos read
-    and R written once (bytes), against the float32 operations the
-    bit-equal spelling needs, each separately rounded add or multiply one
-    instruction (``FP32_ROUNDED``): ``/255`` per pixel; on the gradient
-    region (the surface plus the window halo) a multiply and an add per
-    nonzero Sobel tap of gx and gy and the three products
-    ``wtap * (g * g)``; per pixel 3 x window^2 adds and the 7-operation
-    det/trace tail.  Returns (bound ms, what bounds it, bytes ms,
-    operations ms)."""
-    import numpy as np
-    from repro_torch.core.harris import sobel_kernels
-    gx, gy = sobel_kernels(sobel)
-    rw = window // 2
-    grad = b * (h + 2 * rw) * (w + 2 * rw)
-    pix = b * h * w
-    ops = (pix + grad * (2 * np.count_nonzero(gx) + 2 * np.count_nonzero(gy)
-                         + 6) + pix * (3 * window * window + 7))
-    t_b, t_o = pix * (1 + 4) / MEM_BPS, int(ops) / FP32_ROUNDED
-    return (max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations"),
-            t_b * 1e3, t_o * 1e3)
-
-
-def k3_bound(keep, cap):
-    """Least time for one K3 call on this ``keep`` (bool, rows x E): every
-    keep byte read once, the float32 scores of each row's first
-    ``min(kept, cap)`` kept events read (no other score is needed), the
-    records (int32 index, float32 score) and the count written once; the
-    integer work (a compare, a ballot and a popcount per event) is far
-    below the bytes."""
-    rows, e = keep.shape
-    read = int(keep.sum(dim=1).clamp(max=cap).sum())
-    nbytes = rows * (e + cap * 8 + 4) + 4 * read
-    t_b, t_o = nbytes / MEM_BPS, rows * e * 3 / INT32_OPS
-    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
-
-
-def push_bound(lanes, e, cap):
-    """Least time for one ring push: the round's rows read once (scores,
-    keep, three int32 and one bool per lane) and written once into the
-    slot, the ``cap`` records per lane written (compact ring, ``cap`` > 0)
-    and the three cursors read and written; no arithmetic to speak of."""
-    row = lanes * (e * 5 + 13)
-    nbytes = 2 * row + lanes * cap * 8 + 24
-    return nbytes / MEM_BPS * 1e3, "bytes"
 
 
 # (rounds, lanes, E) of the ring-push cases, each dense and with cap 1,
@@ -515,17 +380,6 @@ def sync(dev) -> None:
     import torch
     if torch.device(dev).type == "cuda":
         torch.cuda.synchronize(dev)
-
-
-def tos_bound(b, h, w, e, patch, keep, *, centre):
-    """Least time for one K4-K7 call: the surface read and the new one
-    written once, the events (xy int32, valid bool) read once, and for
-    K5/K7 the int32 centre surface read once; integer operations, a
-    compare and an update per kept event's patch pixel, are far below."""
-    nbytes = b * h * w * (2 + (4 if centre else 0)) + b * e * (8 + 1)
-    ops = 2 * int(keep.sum()) * patch * patch
-    t_b, t_o = nbytes / MEM_BPS, ops / INT32_OPS
-    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
 def tos_kernel_phase(rng, dev, sizes=((180, 240), (720, 1280)),
@@ -2198,7 +2052,8 @@ def e2e_phase(smi, *, device, duration_us=80_000):
     ``device`` at the reference's size: its lines, and every flag (the
     scan against the oracle on ``nmc`` and the six serving flags of both
     datasets) ``True``; then the oracle once under ``batched`` against the
-    scan, every output equal.  Returns the launch counts."""
+    scan, every output equal.  Returns the launch counts and the example's
+    values."""
     import contextlib
     import io
     import numpy as np
@@ -2253,7 +2108,7 @@ def e2e_phase(smi, *, device, duration_us=80_000):
     if device != "cpu" and min(launches[k] for k in (
             "fused_step", "harris", "compact", "nmc", "batched")) <= 0:
         raise AssertionError(f"a kernel was not launched: {launches}")
-    return launches
+    return launches, res
 
 
 FIG11_REFERENCE = ROOT / "tests" / "data" / "fig11_reference.json"
@@ -2341,6 +2196,273 @@ def paper_phase(smi, *, device):
           f"{launches}; phase took {time.perf_counter() - t_phase:.1f} s")
     if device != "cpu" and min(launches[k] for k in (
             "fused_step", "harris", "nmc")) <= 0:
+        raise AssertionError(f"a kernel was not launched: {launches}")
+    return launches
+
+
+# --- 6j-6l: the TOS-kernel cost model, the regression gate, M10.
+
+def tos_kernels_phase(smi, *, device):
+    """Phase 6j: the TOS-kernel cost model (``repro_torch.benchmarks.
+    bench_tos_kernels``) at full size on ``device``: its rows with the
+    reference's names, the bin rows, unfused bytes and round-trip rows
+    equal to the reference's full-size run
+    (``benchmarks/BENCH_serving.json``), and on the card the measured
+    device time of K4, K6, K5 and K1 beside each kernel's bound; K1 one op
+    call per chunk of the fold (the gated row), and, from the profiler, two
+    kernel launches per chunk.  Returns the launch counts."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.benchmarks import bench_tos_kernels as btk
+    from repro_torch.core import pipeline
+    from repro_torch.kernels import ops
+    t_phase = time.perf_counter()
+    ops.reset_launch_counts()
+    details = {}
+    rows = btk.rows(device=device, details=details)
+    launches = dict(ops.LAUNCHES)
+    base = _baseline_rows("tos_kernels(perf)", "BENCH_serving.json")
+    names = [n for n, _, _ in rows]
+    if len(names) != len(base) or set(names) != set(base):
+        raise AssertionError("[tos_kernels] row names differ from the "
+                             "reference's")
+    held = 0
+    for name, us, value in rows:
+        if name.endswith(("_bin_mean_frac", "_bin_max_frac",
+                          "_unfused_hbm_bytes_per_chunk",
+                          "_roundtrips_per_chunk")):
+            held += 1
+            if value != base[name]["derived"]:
+                raise AssertionError(f"[tos_kernels] {name}: {value} vs the "
+                                     f"reference's {base[name]['derived']}")
+    print(f"[tos_kernels] {smi}: {len(rows)} rows on {device} "
+          f"(name,us_per_call,derived), {held} bin / unfused-byte / "
+          f"round-trip rows equal to the reference's:")
+    for name, us, value in rows:
+        print(f"[tos_kernels]   {name},{us:.3f},{value:.10g}")
+    on_card = device != "cpu"
+    for (h, w, e), d in details.items():
+        if d["k1_calls_per_chunk"] != 1.0:
+            raise AssertionError(f"[tos_kernels] {h}x{w}: "
+                                 f"{d['k1_calls_per_chunk']} K1 calls per "
+                                 f"chunk")
+        kernels = "not measured"
+        if on_card:
+            cfg = pipeline.PipelineConfig(height=h, width=w, chunk=e,
+                                          device=device)
+            st = btk._stream(h, w)
+            pipeline.run_pipeline(st.xy, st.ts, cfg)          # warm
+            n = d["n_chunks"]
+            seen = []
+            # The profiler now and then drops a kernel record at a window's
+            # edges, so empty kernels stand there; a window that holds each
+            # K1 kernel once per chunk settles the count.
+            for _ in range(5):
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    torch.cuda._sleep(0)
+                    torch.cuda.synchronize()
+                    pipeline.run_pipeline(st.xy, st.ts, cfg)
+                    torch.cuda._sleep(0)
+                    torch.cuda.synchronize()
+                counts = {k: sum(r.count for r in prof.key_averages()
+                                 if k in r.key) for k in K1_KERNELS}
+                seen.append(counts)
+                if max(counts.values()) > n:
+                    raise AssertionError(f"[tos_kernels] K1 kernels: "
+                                         f"{counts} over {n} chunks")
+                if set(counts.values()) == {n}:
+                    break
+            if not all(any(c[k] for c in seen) for k in K1_KERNELS):
+                raise AssertionError(f"[tos_kernels] a K1 kernel never "
+                                     f"ran: {seen}")
+            per = sum(seen[-1].values()) / n
+            kernels = (f"{per:g} ({seen[-1]})" if per == 2.0 else
+                       f"not measured (the profiler dropped records in "
+                       f"every window: {seen})")
+        print(f"[tos_kernels] {h}x{w} E={e}: K1 op calls per chunk "
+              f"{d['k1_calls_per_chunk']:g} over {d['n_chunks']} chunks "
+              f"(fused_roundtrips_per_chunk); K1 kernel launches per chunk "
+              f"{kernels}; launch floor {d['t_launch_s'] * 1e6:.3f} us")
+        for name, m in (d["measured"] or {}).items():
+            print(f"[tos_kernels] {smi}: {h}x{w} E={e} {name} "
+                  f"{m['ms'] * 1e3:.3f} us device per call; bound "
+                  f"{m['bound'][0] * 1e3:.4f} us by {m['bound'][1]}")
+    print(f"[tos_kernels] launches: {launches}; phase took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    if on_card and min(launches["fused_step"], launches["harris"]) <= 0:
+        raise AssertionError(f"a kernel was not launched: {launches}")
+    return launches
+
+
+GATE_BASELINE = "benchmarks/BENCH_smoke_baseline.json"
+
+
+def gate_phase(smi, *, device):
+    """Phase 6k: the port runner's regression gate, as the reference's CI
+    runs it: ``python -m repro_torch.benchmarks.run --smoke
+    --check-regression benchmarks/BENCH_smoke_baseline.json`` in its own
+    process, on ``device``; it must exit 0, with every gated baseline row
+    checked (none missing or skipped) and no regression."""
+    import os
+    from repro_torch.benchmarks import run
+    t_phase = time.perf_counter()
+    rows = json.loads((ROOT / GATE_BASELINE).read_text())["rows"]
+    gated = sorted(n for n, r in rows.items() if not r.get("skipped")
+                   and r["derived"] > 0 and any(
+                       n.endswith(s) for s, _ in run._GATE_STRUCTURAL
+                       + run._GATE_TIME))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.benchmarks.run", "--smoke",
+         "--device", device, "--check-regression", GATE_BASELINE],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=900)
+    got = dict(line.split(",")[::2] for line in out.stdout.splitlines()[1:]
+               if line.count(",") == 2)
+    for line in out.stderr.splitlines():
+        if line.startswith(("# gate", "# REGRESSION")) or "done in" in line:
+            print(f"[gate] {line}")
+    summary = f"# gate: {len(gated)} row(s) checked against " \
+              f"{GATE_BASELINE}, 0 regression(s)"
+    if out.returncode != 0 or summary not in out.stderr:
+        print(out.stderr[-4000:])
+        raise AssertionError(f"[gate] the runner exited {out.returncode}; "
+                             f"wanted '{summary}'")
+    print(f"[gate] {smi}: {len(gated)} gated rows (" + ", ".join(
+        f"{n} {got.get(n, 'missing')} [{rows[n]['derived']:.6g}]"
+        for n in gated if "p99" in n or "roundtrips" in n)
+        + f"); exit 0; phase took {time.perf_counter() - t_phase:.1f} s")
+
+
+def baseline_scores(st, fn, device, chunk=512):
+    """Scores of every event of ``st`` by a baseline detector ``fn``: per
+    chunk, the SAE holds the newest timestamp of every event up to the
+    chunk's end, and the chunk's events are scored against it."""
+    import numpy as np
+    import torch
+    from repro_torch.core.stcf import NEVER
+    h, w = st.height, st.width
+    sae = torch.full((h * w,), NEVER, dtype=torch.int32, device=device)
+    out = []
+    for i in range(0, len(st), chunk):
+        xy = torch.as_tensor(st.xy[i:i + chunk].astype(np.int32),
+                             device=device)
+        ts = torch.as_tensor(st.ts[i:i + chunk].astype(np.int32),
+                             device=device)
+        flat = xy[:, 1].long() * w + xy[:, 0].long()
+        sae = sae.scatter_reduce(0, flat, ts, reduce="amax")
+        valid = torch.ones((len(ts),), dtype=torch.bool, device=device)
+        out.append(fn(sae.view(h, w), xy, ts, valid))
+    return torch.cat(out).cpu().numpy()
+
+
+def m10_phase(smi, *, device, nmc_auc=None, duration_us=80_000):
+    """Phase 6l: the rest of the core on ``device`` against the CPU: evFAST
+    and evARC equal, eHarris within ``REL * max|score|`` over the 80 ms
+    shapes_dof stream (``baseline_scores``), with each one's PR-AUC and
+    us/event beside NMC-TOS's (``[e2e]``); ``TosStream.update`` through
+    ``ops.tos_update_op`` in every mode (K4-K7) equal to the plain closed
+    form over the stream; ``stcf_sequential`` equal to ``stcf_chunked``
+    and to the CPU; BER draws (``corrupt_surface`` at 0.6-0.62 V,
+    ``inject_write_errors``) and ``corner_lut`` as on the CPU.  Returns
+    the launch counts."""
+    import functools
+    import numpy as np
+    import torch
+    from repro_torch.core import baselines, ber, harris, pr_eval, prng
+    from repro_torch.core import stcf, tos
+    from repro_torch.events import aer, synthetic
+    from repro_torch.kernels import ops
+    t_phase = time.perf_counter()
+    st = synthetic.shapes_stream(duration_us=duration_us, seed=0)
+    parts = []
+    for name in ("fast_scores", "arc_scores", "eharris_scores"):
+        fn = getattr(baselines, name)
+        baseline_scores(st, fn, device)                       # warm
+        sync(device)
+        t0 = time.perf_counter()
+        got = baseline_scores(st, fn, device)
+        dt = time.perf_counter() - t0
+        want = baseline_scores(st, fn, "cpu")
+        if name == "eharris_scores":
+            err = close(got, want)
+        elif not np.array_equal(got, want):
+            raise AssertionError(f"[m10] {name} on {device} differs from "
+                                 f"the CPU")
+        else:
+            err = 0.0
+        auc = pr_eval.pr_auc(got, st.is_corner)
+        parts.append(f"{name.split('_')[0]} PR-AUC {auc:.6f} at "
+                     f"{dt / len(st) * 1e6:.3f} us/event (max|delta| "
+                     f"{err:.3g} to the CPU)")
+    nmc = "" if nmc_auc is None else f"; NMC-TOS [e2e] {nmc_auc:.6f}"
+    print(f"[m10] {smi}: shapes_dof {duration_us // 1000} ms, "
+          f"{len(st)} events, chunk 512: " + "; ".join(parts) + nmc)
+
+    ops.reset_launch_counts()
+    chunks = [(torch.as_tensor(st.xy[i:i + 512].astype(np.int32),
+                               device=device),
+               torch.ones((len(st.xy[i:i + 512]),), dtype=torch.bool,
+                          device=device)) for i in range(0, len(st), 512)]
+    plain = tos.TosStream.init(st.height, st.width, device=device)
+    for xy, valid in chunks:
+        plain = plain.update(xy, valid)
+    for mode in ops.TOS_MODES:
+        s = tos.TosStream.init(st.height, st.width, device=device)
+        fn = functools.partial(ops.tos_update_op, mode=mode)
+        for xy, valid in chunks:
+            s = s.update(xy, valid, update_fn=fn)
+        if not torch.equal(s.surface, plain.surface):
+            raise AssertionError(f"[m10] TosStream through {mode} differs")
+    if not bool(tos.tos_invariant_ok(plain.surface)):
+        raise AssertionError("[m10] the folded surface breaks the invariant")
+    launches = dict(ops.LAUNCHES)
+
+    rng = np.random.default_rng(10)
+    sae0 = np.full((st.height, st.width), stcf.NEVER, np.int32)
+    np.maximum.at(sae0, (st.xy[:4000, 1], st.xy[:4000, 0]),
+                  st.ts[:4000].astype(np.int32))
+    ev = [st.xy[4000:4512].astype(np.int32), st.ts[4000:4512].astype(
+        np.int32), rng.random(512) < 0.9]
+    res = {}
+    for d in (device, "cpu"):
+        args = [torch.as_tensor(a, device=d) for a in (sae0, *ev)]
+        res[d] = (stcf.stcf_sequential(*args), stcf.stcf_chunked(*args))
+    for (s1, k1), (s2, k2) in (res[device], (res[device][0], res["cpu"][0])):
+        if not (torch.equal(s1.cpu(), s2.cpu()) and
+                torch.equal(k1.cpu(), k2.cpu())):
+            raise AssertionError("[m10] stcf_sequential differs")
+
+    surf = np.where(rng.random((st.height, st.width)) < 0.5,
+                    rng.integers(225, 256, (st.height, st.width)),
+                    0).astype(np.uint8)
+    n_ber = 0
+    for vdd in (0.6, 0.605, 0.61, 0.62):
+        outs = [ber.corrupt_surface(prng.prng_key(7, device=d),
+                                    torch.as_tensor(surf, device=d),
+                                    vdd).cpu() for d in (device, "cpu")]
+        n_ber += int((outs[0].numpy() != surf).sum())
+        if not torch.equal(*outs):
+            raise AssertionError(f"[m10] BER draws at {vdd} V differ")
+    outs = [ber.inject_write_errors(prng.prng_key(8, device=d),
+                                    torch.as_tensor(surf, device=d),
+                                    0.025).cpu() for d in (device, "cpu")]
+    if not torch.equal(*outs):
+        raise AssertionError("[m10] inject_write_errors draws differ")
+    lut_err = close(harris.corner_lut(torch.as_tensor(surf, device=device))
+                    .cpu().numpy(),
+                    harris.corner_lut(torch.as_tensor(surf)).numpy())
+    words = aer.pack(st.xy, np.where(st.is_corner, 1, -1))
+    if not np.array_equal(aer.unpack(words)[0], st.xy):
+        raise AssertionError("[m10] the AER round trip differs")
+    print(f"[m10] TosStream through K4-K7 (tos_update_op modes "
+          f"{list(ops.TOS_MODES)}) equal to the plain closed form over "
+          f"{len(chunks)} chunks; stcf_sequential equal to stcf_chunked and "
+          f"to the CPU; BER draws at 0.6-0.62 V ({n_ber} corrupted pixels) "
+          f"and at 0.025 equal to the CPU; corner_lut max|delta| "
+          f"{lut_err:.3g} to the CPU; AER round trip; launches {launches}; "
+          f"phase took {time.perf_counter() - t_phase:.1f} s")
+    if device != "cpu" and min(launches[m] for m in ops.TOS_MODES) <= 0:
         raise AssertionError(f"a kernel was not launched: {launches}")
     return launches
 
@@ -2517,8 +2639,15 @@ def main() -> int:
 
     # --- 6g-6i. the loader path, the end-to-end example, the paper benches
     loader_launches = loader_phase(smi, device="cuda")
-    e2e_launches = e2e_phase(smi, device="cuda")
+    e2e_launches, e2e_res = e2e_phase(smi, device="cuda")
     paper_launches = paper_phase(smi, device="cuda")
+
+    # --- 6j-6l. the TOS-kernel cost model, the regression gate, M10 -----
+    cost_launches = tos_kernels_phase(smi, device="cuda")
+    gate_phase(smi, device="cuda")
+    m10_launches = m10_phase(
+        smi, device="cuda",
+        nmc_auc=e2e_res["shapes_dof"]["auc_errorfree"])
 
     # --- 7. times at the main path's shapes ----------------------------
     # K1 as the main path calls it: in place on a state it owns, each call
@@ -2530,7 +2659,9 @@ def main() -> int:
     ins, ber, bits = k1_inputs(rng, b, h, w, e, dev, inject=True)
     keep = fused_step.fused_step_cuda(*ins, ber, bits, **kw)[2]
 
-    def k1_call(t_ins, *extra, calls=33):
+    def k1_call(t_ins, *extra, calls=123):
+        # Enough fresh states for a warm-up, three profiler windows and a
+        # CUDA-event fallback (``device_split``).
         states = iter([(t_ins[0].clone(), t_ins[1].clone())
                        for _ in range(calls)])
         return lambda: fused_step.fused_step_cuda_(*next(states),
@@ -2691,7 +2822,7 @@ def main() -> int:
 
     entry_points = (cli_launches, quick_launches, scenario_launches,
                     bench_launches, loader_launches, e2e_launches,
-                    paper_launches)
+                    paper_launches, cost_launches, m10_launches)
     launches = {k: batch_launches[k] + serve_launches[k]
                 + adaptive_launches[k] + ladder_launches[k]
                 + sum(d[k] for d in entry_points)

@@ -6,7 +6,10 @@ on write-back; value-0 pixels skip write-back.
 
 ``write_error_bits`` draws the per-pixel 5-bit xor masks with the JAX-exact
 threefry (``core.prng``), so a port run corrupts the same bits as the
-reference for the same key; ``apply_write_errors`` applies them.  Both take
+reference for the same key; ``apply_write_errors`` applies them.
+``inject_write_errors`` (a static rate) and ``corrupt_surface`` (the rate
+of an operating voltage, ``hwmodel.ber_at``) are spellings of
+``inject_write_errors_at``, so all three draw the same bits.  Both take
 an optional leading lane axis: ``key (..., 2)``, ``ber (...)``,
 ``tos (..., H, W)``.
 """
@@ -21,7 +24,9 @@ __all__ = [
     "decode5",
     "write_error_bits",
     "apply_write_errors",
+    "inject_write_errors",
     "inject_write_errors_at",
+    "corrupt_surface",
 ]
 
 BASE = 224  # code 1 encodes BASE + 1 = 225 = the default threshold
@@ -65,3 +70,23 @@ def inject_write_errors_at(key: torch.Tensor, tos: torch.Tensor,
     """``write_error_bits`` + ``apply_write_errors`` for one write pass."""
     return apply_write_errors(
         tos, write_error_bits(key, tuple(tos.shape[-2:]), ber), ber)
+
+
+def inject_write_errors(key: torch.Tensor, tos: torch.Tensor,
+                        ber: float) -> torch.Tensor:
+    """``inject_write_errors_at`` at a static float rate; a rate of 0 or
+    less returns ``tos`` itself."""
+    if ber <= 0.0:
+        return tos
+    return inject_write_errors_at(key, tos, _rate(ber, tos))
+
+
+def corrupt_surface(key: torch.Tensor, tos: torch.Tensor,
+                    vdd: float) -> torch.Tensor:
+    """``inject_write_errors_at`` at the BER of operating voltage ``vdd``."""
+    from repro_torch.core import hwmodel
+    return inject_write_errors_at(key, tos, _rate(hwmodel.ber_at(vdd), tos))
+
+
+def _rate(ber: float, tos: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(ber, dtype=torch.float32, device=tos.device)

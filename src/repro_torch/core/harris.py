@@ -17,7 +17,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["sobel_kernels", "harris_response", "score_events",
+__all__ = ["sobel_kernels", "harris_response", "corner_lut", "score_events",
            "harris_constants"]
 
 DEFAULT_K = 0.04
@@ -94,6 +94,19 @@ def harris_response(
     det = a * b - cc * cc
     tr = a + b
     return det - c["k"] * tr * tr
+
+
+def corner_lut(
+    tos: torch.Tensor,
+    *,
+    sobel_size: int = DEFAULT_SOBEL,
+    window_size: int = DEFAULT_WINDOW,
+    k: float = DEFAULT_K,
+) -> torch.Tensor:
+    """The paper's name for the response: the frame-by-frame Harris
+    response of the TOS is the corner LUT."""
+    return harris_response(tos, sobel_size=sobel_size,
+                           window_size=window_size, k=k)
 
 
 def score_events(lut: torch.Tensor, xy: torch.Tensor,

@@ -17,6 +17,8 @@ reference's MXU spelling does; it is bit-equal to ``tos_update_batched``.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 __all__ = [
@@ -27,6 +29,8 @@ __all__ = [
     "tos_update_sequential",
     "tos_update_batched",
     "tos_update_batched_onehot",
+    "tos_invariant_ok",
+    "TosStream",
 ]
 
 TOS_MAX = 255
@@ -172,3 +176,31 @@ def tos_update_batched_onehot(
     k_total = torch.matmul(row_band.to(torch.float32).T,
                            col_band.to(torch.float32)).to(torch.int32)
     return _closed_form(tos, xy, valid, k_total, r, th)
+
+
+def tos_invariant_ok(tos: torch.Tensor, th: int = DEFAULT_TH) -> torch.Tensor:
+    """The TOS invariant, values in {0} U [th, 255], as a 0-d bool tensor."""
+    v = tos.to(torch.int32)
+    return ((v == 0) | ((v >= th) & (v <= TOS_MAX))).all()
+
+
+class TosStream(NamedTuple):
+    """The carry of a long stream folded chunk by chunk: one surface.
+
+    ``update`` takes any order-exact chunk update, ``tos_update_batched``
+    by default; ``functools.partial(kernels.ops.tos_update_op, mode=...)``
+    runs it through K4-K7 on a CUDA surface.
+    """
+
+    surface: torch.Tensor
+
+    @staticmethod
+    def init(height: int, width: int, *, device="cuda") -> "TosStream":
+        from repro_torch.core.state import resolve_device
+        return TosStream(tos_new(height, width,
+                                 device=resolve_device(device)))
+
+    def update(self, xy, valid, *, patch=DEFAULT_PATCH, th=DEFAULT_TH,
+               update_fn=None) -> "TosStream":
+        fn = tos_update_batched if update_fn is None else update_fn
+        return TosStream(fn(self.surface, xy, valid, patch=patch, th=th))

@@ -11,7 +11,9 @@ tensor to a plain version.  Surfaces may be one ``(H, W)`` lane or a
 Each wrapper counts its kernel launches in ``LAUNCHES`` (plain calls on the
 CPU are not counted), so a run can show that its main path went through the
 kernels; ``"compact"`` counts K3's ring pushes, dense and compact, and its
-standalone compactions.
+standalone compactions.  ``CALLS["fused_step"]`` counts K1's wrapper calls
+on either device (on CUDA it equals the launch count), so K1 calls per
+chunk, a structural count of the cost model, reads the same on the CPU.
 """
 from __future__ import annotations
 
@@ -24,7 +26,8 @@ from repro_torch.kernels import compact, fused_step, harris_conv, tos_update
 
 __all__ = ["fused_step_op", "fused_step_op_", "harris_response_op",
            "compact_slots_op", "ring_push_op", "tos_update_op",
-           "centre_surface", "TOS_MODES", "LAUNCHES", "reset_launch_counts"]
+           "centre_surface", "TOS_MODES", "LAUNCHES", "CALLS",
+           "reset_launch_counts"]
 
 # tos_update_op's modes, each with its kernel in ``kernels.tos_update``.
 TOS_MODES = {"nmc": "nmc_stream", "batched": "batched_fused",
@@ -33,11 +36,13 @@ TOS_MODES = {"nmc": "nmc_stream", "batched": "batched_fused",
 
 LAUNCHES = {"fused_step": 0, "harris": 0, "compact": 0,
             **{mode: 0 for mode in TOS_MODES}}
+CALLS = {"fused_step": 0}
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, CALLS):
+        for name in counts:
+            counts[name] = 0
 
 
 def _device_type(t: torch.Tensor) -> str:
@@ -58,6 +63,7 @@ def _fused_step(inplace, tos, sae, lut, xy, ts, valid, ber, bits, mask,
             mask = mask.reshape(1)
     if bits is not None and ber is None:
         raise ValueError("BER bits given without the ber rate")
+    CALLS["fused_step"] += 1
     if _device_type(tos) == "cpu":
         fn = (fused_step.fused_step_ref_ if inplace
               else fused_step.fused_step_ref)

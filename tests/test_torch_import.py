@@ -45,7 +45,9 @@ def test_port_has_the_slice_modules():
                  "benchmarks.scenarios", "benchmarks.run",
                  "events.datasets", "examples.corner_detection_e2e",
                  "benchmarks.bench_hwmodel", "benchmarks.bench_dvfs",
-                 "benchmarks.bench_auc", "benchmarks.bench_throughput"):
+                 "benchmarks.bench_auc", "benchmarks.bench_throughput",
+                 "benchmarks.bench_tos_kernels", "benchmarks.bounds",
+                 "benchmarks.timing", "core.baselines", "events.aer"):
         assert "repro_torch." + name in MODULES
     for src in ("fused_step", "harris", "compact", "tos_update", "tos_count"):
         assert (PORT / "csrc" / f"{src}.cu").is_file()

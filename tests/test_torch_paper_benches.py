@@ -135,7 +135,8 @@ def test_runner_order_is_the_references():
     ours = [label for label, _ in t_run.MODULES]
     assert ours == [label for label in ref if label in ours]
     assert ours[:4] == list(MODULES)
-    assert ours[4:] == ["streaming(serving)", "scenarios(slo)"]
+    assert ours[4:] == ["tos_kernels(perf)", "streaming(serving)",
+                        "scenarios(slo)"]
 
 
 def test_runner_prints_the_paper_modules(tmp_path, capsys, monkeypatch):

@@ -481,7 +481,9 @@ def test_knob_actions_coalesce_into_one_batched_write():
     """A ladder step that moves several lanes in one pass is one coalesced
     write (``ctrl_batched_writes`` / ``ctrl_actions_coalesced`` as the JAX
     pool's) and lands the same ``ctrl`` leaves as ``set_lane_control``
-    writing the same values lane by lane, which counts no batched write."""
+    writing the same values lane by lane, which counts no batched write.
+    Both pools drain synchronously: the stats are read between pumps,
+    where an async reader's fetch counts would depend on thread timing."""
     st = synthetic.ramp_stream([400] * 10, CFG.dvfs_cfg.half_us, seed=7)
     runs = {}
     for name, (Pool, _, sched, cfg) in PAIRS.items():
@@ -489,7 +491,7 @@ def test_knob_actions_coalesce_into_one_batched_write():
                                  recover_patience=1,
                                  classes=(("standard", 3),))
         pool = Pool(cfg, capacity=3, ring_rounds=2, buckets=(128,),
-                    policy="ladder", ladder=lad)
+                    policy="ladder", ladder=lad, drain_mode="sync")
         lanes = [pool.connect() for _ in range(3)]
         for j in range(8):
             for lane in lanes:

@@ -113,7 +113,7 @@ def main() -> int:
         rec = torch.empty((b, 512, 2), dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream().cuda_stream
 
-        def launch(fn, inject, calls=33):
+        def launch(fn, inject, calls=123):
             states = iter([(ins[0].clone(), ins[1].clone())
                            for _ in range(calls)])
 
