@@ -10,6 +10,22 @@ checkout of this repository.  Phases, each printing its own lines:
   1. environment: the card's name and power limit, and the ``nvcc`` build
      of the five kernel sources (``csrc/*.cu``, built in parallel for
      ``sm_90a``);
+  1b. the LM scaffold's serving path (M11a; plain PyTorch, no kernel of
+     the port lies on it), lines ``[lm]``: the precision switches (TF32
+     must be off); the serve CLI (``repro_torch.launch.serve.main``) at
+     ``qwen2-0.5b``'s published width (24 layers, d 896, vocab 151,936,
+     bf16), batch 4, cache 128, 32 steps: greedy, ``--kv-quant`` and
+     ``--temperature 0.8`` (tok/s, ms per step), two greedy runs equal, and
+     a decode step's kernel and copy launches, device busy time and wall;
+     a 64-token ``forward_prefill_cache`` handed to 8 greedy decode steps
+     at that width, card against host on the same weights (the host fed
+     the card's tokens) within ``LM_BF16`` of the largest logit, two card
+     runs bit-equal; every other family at full width with its depth cut
+     (``LM_DEPTH``; DeepSeek-V3 at its smoke config, since one layer of
+     its experts is ~22 GB of bf16) in float32, 4 decode steps card
+     against host within ``LM_F32``; and ``forward_prefill`` of 2,048
+     tokens at qwen2-0.5b's width, 2 layers, through the blockwise
+     attention, card against host;
   2. K1 (fused chunk step) in place (``fused_step_cuda_``), functional
      and under a lane mask against its plain PyTorch version on the card,
      on ``K1_CASES`` (180x240 and 1280x720 at 1 and 4 lanes; E of 1, 300
@@ -2467,6 +2483,310 @@ def m10_phase(smi, *, device, nmc_auc=None, duration_us=80_000):
     return launches
 
 
+# --- 1b: the LM scaffold's serving path (M11a) -------------------------
+# No kernel of the port lies on this path: it is torch's own matmuls and
+# elementwise ops, held card against host.
+
+# Depth cuts of phase 1b's per-family check at full width ("enc": the
+# encoder's).  Zamba2 keeps 6 layers so that one shared-attention site
+# (every 6th layer) is on the path.
+LM_DEPTH = {"qwen2_5_3b": {"n_layers": 2}, "granite_20b": {"n_layers": 2},
+            "stablelm_3b": {"n_layers": 2}, "olmoe_1b_7b": {"n_layers": 2},
+            "phi_3_vision_4_2b": {"n_layers": 2},
+            "whisper_tiny": {"n_layers": 2, "n_enc_layers": 2},
+            "mamba2_370m": {"n_layers": 2}, "zamba2_1_2b": {"n_layers": 6}}
+LM_F32 = 1e-4      # float32, card vs host: max|delta| <= LM_F32*max(1, max|cpu|)
+LM_BF16 = 5e-2     # bf16, card vs host: max|delta| <= LM_BF16 * max|cpu|
+
+
+def _lm_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _lm_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _lm_leaves(v)]
+    return [tree]
+
+
+def _lm_err(got, want, bound, scale_floor, what):
+    """max |got - want| over two trees; raises above ``bound`` times
+    ``max(scale_floor, max|want|)``."""
+    err = scale = 0.0
+    for g, w in zip(_lm_leaves(got), _lm_leaves(want)):
+        if g.shape != w.shape:
+            raise AssertionError(f"{what}: shape {tuple(g.shape)} != "
+                                 f"{tuple(w.shape)}")
+        g, w = g.detach().float().cpu(), w.detach().float()
+        if not bool(g.isfinite().all()):
+            raise AssertionError(f"{what}: non-finite values on the card")
+        err = max(err, float((g - w).abs().max()))
+        scale = max(scale, float(w.abs().max()))
+    if err > bound * max(scale_floor, scale):
+        raise AssertionError(f"{what}: max |delta| {err:.3g} > {bound} * "
+                             f"{max(scale_floor, scale):.3g}")
+    return err, scale
+
+
+def _lm_model(cfg, dev, seed=0):
+    """Random weights on ``dev`` and their copy on the host."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import tree_map
+    params, _ = T.init_params(cfg, torch.Generator(dev).manual_seed(seed))
+    return params, tree_map(lambda a: a.cpu(), params)
+
+
+def _lm_decode(cfg, params, dev, b, length, steps, toks, forced=None):
+    """``steps`` decode steps from ``zeros_cache``; the next tokens are the
+    argmax of each step, or ``forced``'s.  Returns logits per step, the
+    last cache and the tokens fed."""
+    import torch
+    from repro_torch.models import transformer as T
+    cache = T.zeros_cache(cfg, b, length, dev)
+    t = toks.to(dev)
+    logits, fed = [], [t.cpu()]
+    for pos in range(steps):
+        lg, cache = T.forward_decode(params, t, cache, pos, cfg)
+        logits.append(lg)
+        t = (lg[:, -1].float().argmax(-1)[:, None].to(torch.int32)
+             if forced is None else forced[pos + 1].to(dev))
+        fed.append(t.cpu())
+    return logits, cache, fed
+
+
+def _lm_prefill_decode(cfg, params, dev, batch, steps, forced=None):
+    """``forward_prefill_cache`` on ``batch`` handed to ``steps`` decode
+    steps; each next token is the argmax of the last logits, or
+    ``forced``'s.  Returns the logits of each call and the tokens fed."""
+    import torch
+    from repro_torch.models import transformer as T
+    lg, cache, pos = T.forward_prefill_cache(
+        params, {k: v.to(dev) for k, v in batch.items()}, cfg,
+        batch["tokens"].shape[1] + steps)
+    logits, fed = [lg.cpu()], []
+    for i in range(steps):
+        toks = (lg[:, -1].float().argmax(-1)[:, None].to(torch.int32)
+                if forced is None else forced[i].to(dev))
+        fed.append(toks.cpu())
+        lg, cache = T.forward_decode(params, toks, cache, pos + i, cfg)
+        logits.append(lg.cpu())
+    return logits, fed
+
+
+def lm_phase(smi, *, device="cuda", full=True):
+    """Phase 1b ``[lm]``: the LM scaffold's serving path on ``device``
+    against the host.  ``full=False`` runs the smoke configs (a rehearsal
+    on the CPU)."""
+    import contextlib
+    import dataclasses
+    import io
+    import re
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import configs
+    from repro_torch.core import prng
+    from repro_torch.launch import serve
+    from repro_torch.models import attention as attn
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import tree_map
+    from repro_torch.train.train_step import make_serve_step
+
+    dev = torch.device(device)
+    t_phase = time.perf_counter()
+    get = configs.get if full else configs.get_smoke
+    switches = {
+        "matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+        "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+        "matmul.allow_bf16_reduced_precision_reduction":
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
+        "matmul.allow_fp16_reduced_precision_reduction":
+            torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction,
+        "float32_matmul_precision": torch.get_float32_matmul_precision()}
+    print(f"[lm] {smi}: precision switches {switches}")
+    if switches["matmul.allow_tf32"] or \
+            switches["float32_matmul_precision"] != "highest":
+        raise AssertionError("TF32 must stay off for the float32 checks")
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    # --- 1. the serve CLI at qwen2-0.5b, as a user runs it -------------
+    arch = "qwen2-0.5b"
+    cfg = get(arch)
+    base = ["--arch", arch, "--device", str(dev.type)] + \
+        ([] if full else ["--smoke"])
+    runs = {"greedy": [], "kv-quant": ["--kv-quant"],
+            "temperature 0.8": ["--temperature", "0.8"]}
+    with contextlib.redirect_stdout(io.StringIO()):
+        serve.main(base + ["--steps", "2"])                   # warm-up
+    out = {}
+    for name, flags in runs.items():
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            seqs = serve.main(base + flags)
+        first = buf.getvalue().splitlines()[0]
+        m = re.match(r"decoded (\d+) steps x batch (\d+) in ([\d.]+)s "
+                     r"\(([\d.]+) tok/s\)", first)
+        if m is None or seqs.shape != (4, 33) or seqs.min() < 0 or \
+                seqs.max() >= cfg.vocab:
+            raise AssertionError(f"[lm] CLI {name}: {first!r}, seqs "
+                                 f"{seqs.shape}")
+        out[name] = seqs
+        print(f"[lm] {smi}: serve CLI {arch}{'' if full else ' (smoke)'} "
+              f"{name}: {first}; {float(m.group(3)) / 32 * 1e3:.3f} ms per "
+              f"step (host clock, 32 steps x batch 4, cache 128)")
+    with contextlib.redirect_stdout(io.StringIO()):
+        again = serve.main(base)
+    if not np.array_equal(again, out["greedy"]):
+        raise AssertionError("[lm] two greedy CLI runs on the card differ")
+
+    # launches per decode step: the profiler's device records
+    params, _ = T.init_params(cfg, torch.Generator(dev).manual_seed(0))
+    for kv_quant in (False, True):
+        c = dataclasses.replace(cfg, kv_quant=kv_quant)
+        step = make_serve_step(c)
+        cache = T.zeros_cache(c, 4, 128, dev)
+        toks = torch.ones((4, 1), dtype=torch.int32, device=dev)
+        key = prng.prng_key(1, device=dev)
+        for pos in range(3):
+            toks, _, cache = step(params, toks, cache, pos, key)
+        sync()
+        n = 8
+        if dev.type == "cuda":
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for pos in range(3, 3 + n):
+                    toks, _, cache = step(params, toks, cache, pos, key)
+                sync()
+            rows = [r for r in prof.key_averages()
+                    if str(r.device_type).endswith("CUDA")]
+            launches = sum(r.count for r in rows) / n
+            dev_ms = sum(r.self_device_time_total for r in rows) / 1e3 / n
+        else:
+            launches = dev_ms = float("nan")
+        t0 = time.perf_counter()
+        for pos in range(3 + n, 3 + 2 * n):
+            toks, _, cache = step(params, toks, cache, pos, key)
+        sync()
+        wall = (time.perf_counter() - t0) / n * 1e3
+        print(f"[lm] {smi}: {arch} greedy decode step, batch 4, cache 128"
+              f"{', int8 KV' if kv_quant else ''}: {launches:.1f} kernel "
+              f"and copy launches per step, device busy {dev_ms:.3f} ms, "
+              f"wall {wall:.3f} ms per step (idle share "
+              f"{1 - dev_ms / wall:.3f})")
+    del params, cache
+
+    # --- 2. prefill + decode at full width, card against host -----------
+    # bf16 on both sides, and float32 on the same (upcast) weights: the
+    # card's bf16 run may sit no farther from the host's float32 run than
+    # the host's bf16 run does, plus LM_BF16 of the largest logit; the
+    # card's float32 run within LM_F32 of the host's.
+    f32 = dict(param_dtype=torch.float32, act_dtype=torch.float32)
+    cfg32 = dataclasses.replace(cfg, **f32)
+    params, host = _lm_model(cfg, dev)
+    b, prompt, steps = 2, 64, 8
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(0).integers(
+        1, cfg.vocab, (b, prompt)).astype(np.int32))}
+    got = [_lm_prefill_decode(cfg, params, dev, batch, steps)
+           for _ in range(2)]
+    if not all(torch.equal(x, y) for x, y in zip(got[0][0], got[1][0])):
+        raise AssertionError("[lm] two prefill+decode runs on the card differ")
+    fed = got[0][1]              # the host is fed the card's greedy tokens
+    host_bf = _lm_prefill_decode(cfg, host, "cpu", batch, steps, fed)[0]
+    host = tree_map(lambda a: a.float(), host)
+    truth = _lm_prefill_decode(cfg32, host, "cpu", batch, steps, fed)[0]
+    params = tree_map(lambda a: a.float(), params)
+    card32 = _lm_prefill_decode(cfg32, params, dev, batch, steps, fed)[0]
+    err32, scale = _lm_err(card32, truth, LM_F32, 1.0, f"[lm] {arch} float32")
+    e_card = _lm_err(got[0][0], truth, float("inf"), 0.0, "")[0]
+    e_host = _lm_err(host_bf, truth, float("inf"), 0.0, "")[0]
+    if e_card > e_host + LM_BF16 * scale:
+        raise AssertionError(f"[lm] {arch} bf16: card {e_card:.4g} from "
+                             f"float32, host {e_host:.4g}, max|logit| "
+                             f"{scale:.4g}")
+    e_pair = _lm_err(got[0][0], host_bf, float("inf"), 0.0, "")[0]
+    same = sum(int(torch.equal(g[:, -1].float().argmax(-1),
+                               w[:, -1].float().argmax(-1)))
+               for g, w in zip(got[0][0], host_bf))
+    print(f"[lm] {smi}: {arch} prefill of {prompt} tokens x batch {b} "
+          f"handed to {steps} greedy decode steps (the host fed the card's "
+          f"tokens): bf16 max |delta| from the host's float32 run card "
+          f"{e_card:.4g}, host {e_host:.4g} (bound host + {LM_BF16} * "
+          f"{scale:.4g}), card vs host bf16 {e_pair:.4g}, greedy picks "
+          f"equal in {same} of {steps + 1}; float32 card vs host "
+          f"{err32:.3g} (bound {LM_F32} * max(1, max|logit|)); two card "
+          f"bf16 runs bit-equal")
+    del params, host
+
+    # --- 3. every other family at full width, cut depth, float32 --------
+    cuts = []
+    for name in configs.ARCHS:
+        if name == "qwen2_0_5b":
+            continue
+        smoke_only = name == "deepseek_v3_671b" or not full
+        c = configs.get_smoke(name) if smoke_only else dataclasses.replace(
+            configs.get(name), **LM_DEPTH[name])
+        c = dataclasses.replace(c, **f32)
+        t0 = time.perf_counter()
+        p_dev, p_host = _lm_model(c, dev)
+        toks = torch.from_numpy(np.random.default_rng(1).integers(
+            1, c.vocab, (2, 1)).astype(np.int32))
+        lg_d, cache_d, fed = _lm_decode(c, p_dev, dev, 2, 16, 4, toks)
+        lg_h, cache_h, _ = _lm_decode(c, p_host, "cpu", 2, 16, 4, toks,
+                                      forced=fed)
+        err, scale = _lm_err(lg_d, lg_h, LM_F32, 1.0, f"[lm] {name}")
+        cerr, _ = _lm_err(cache_d, cache_h, LM_F32, 1.0, f"[lm] {name} cache")
+        depth = "smoke config" if smoke_only else ", ".join(
+            f"{k} {v} of {getattr(configs.get(name), k)}"
+            for k, v in LM_DEPTH[name].items())
+        cuts.append(f"{name}: {depth}")
+        if name == "deepseek_v3_671b" and full:
+            depth += ("; at full width one layer of its experts is ~22 GB "
+                      "of bf16, more than the host side of the check holds")
+        print(f"[lm] {smi}: {name} float32 ({depth}"
+              f"): 4 decode steps x batch 2, card vs host logits max |delta| "
+              f"{err:.3g} (max|logit| {scale:.3g}), caches {cerr:.3g}, "
+              f"bound {LM_F32} * max(1, max|cpu|); "
+              f"{time.perf_counter() - t0:.1f} s")
+        del p_dev, p_host, cache_d, cache_h
+
+    # --- 4. the blockwise attention path at qwen2-0.5b width ------------
+    seq = attn.BLOCKWISE_MIN_SEQ     # 2,048: the reference's switch
+    c = dataclasses.replace(get(arch), n_layers=2, **f32)
+    p_dev, p_host = _lm_model(c, dev)
+    calls = []
+    blockwise = attn._attend_blockwise_causal
+
+    def counted(*a, **k):
+        calls.append(a[0].device.type)
+        return blockwise(*a, **k)
+
+    attn._attend_blockwise_causal = counted
+    try:
+        tokens = torch.from_numpy(np.random.default_rng(2).integers(
+            1, c.vocab, (1, seq)).astype(np.int32))
+        got = T.forward_prefill(p_dev, {"tokens": tokens.to(dev)}, c)
+        on_dev = list(calls)
+        want = T.forward_prefill(p_host, {"tokens": tokens}, c)
+    finally:
+        attn._attend_blockwise_causal = blockwise
+    if on_dev != [dev.type] * c.n_layers:
+        raise AssertionError(f"[lm] blockwise attention ran {on_dev}")
+    err, scale = _lm_err(got, want, LM_F32, 1.0, "[lm] blockwise")
+    print(f"[lm] {smi}: {arch} width, {c.n_layers} layers of "
+          f"{get(arch).n_layers}, float32, "
+          f"forward_prefill of {seq} tokens through the blockwise attention "
+          f"({c.n_layers} calls on the card, chunk "
+          f"{attn.DEFAULT_ATTN_CHUNK}): card vs host max |delta| {err:.3g} "
+          f"(max|logit| {scale:.3g}, bound {LM_F32} * max(1, max|cpu|))")
+    del p_dev, p_host
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()    # hand the weights' memory back
+    print(f"[lm] {smi}: cut depths: qwen2_0_5b full depth ({cfg.n_layers} "
+          f"layers); " + "; ".join(cuts)
+          + f"; phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2492,6 +2812,9 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[env] ptxas {name}: {line.strip()}")
+
+    # --- 1b. the LM scaffold's serving path (no kernel of the port) -----
+    lm_phase(smi)
 
     # --- 2. K1 against its plain version -------------------------------
     rng = np.random.default_rng(0)

@@ -9,6 +9,8 @@ its state and reproduces ``jax.random`` bit for bit, so a port run and a
   * ``split(key)``                == ``jax.random.split(key)`` under the
                                      default ``jax_threefry_partitionable``
   * ``bernoulli_bits(key, p, s)`` == ``jax.random.bernoulli(key, p, s)``
+  * ``uniform``, ``gumbel``, ``categorical`` == ``jax.random``'s float32
+    draws (``mode="low"``, jax's default), for the LM serve step's sampler
 
 uint32 arithmetic is emulated in int64 tensors with a 32-bit mask (PyTorch
 has no unsigned 32-bit arithmetic on every device).  Keys are int64 tensors
@@ -23,7 +25,7 @@ import math
 import torch
 
 __all__ = ["prng_key", "split", "random_bits", "bernoulli_bits",
-           "threefry2x32"]
+           "uniform", "gumbel", "categorical", "threefry2x32"]
 
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -105,3 +107,31 @@ def bernoulli_bits(key: torch.Tensor, p: torch.Tensor,
     u = (bits >> 9).to(torch.float32) * (2.0 ** -23)
     p = p.to(torch.float32).reshape(*p.shape, *((1,) * len(shape)))
     return u < p
+
+
+_TINY32 = float(torch.finfo(torch.float32).tiny)
+
+
+def uniform(key: torch.Tensor, shape: tuple, minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``: the top
+    23 bits as the mantissa of a float in [1, 2), minus 1, scaled, and
+    clamped below at ``minval``; float32 throughout."""
+    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    u = (random_bits(key, shape) >> 9).to(torch.float32) * (2.0 ** -23)
+    return torch.maximum(lo, u * (hi - lo) + lo)
+
+
+def gumbel(key: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape, float32)`` in mode ``"low"``:
+    ``-log(-log(uniform(key, minval=tiny, maxval=1)))``."""
+    return -torch.log(-torch.log(uniform(key, shape, _TINY32, 1.0)))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, axis=-1)`` for float32 logits
+    by the Gumbel-max trick: ``argmax(gumbel + logits)`` over the last
+    axis, the first index on ties."""
+    noise = gumbel(key, tuple(logits.shape))
+    return torch.argmax(noise + logits, dim=-1)

@@ -685,3 +685,48 @@ def test_onehot_update_on_cuda_is_bit_equal(cuda):
                            dtype=torch.uint8, device=cuda)
     assert torch.equal(t_tos.tos_update_batched_onehot(surf, xy, valid),
                        t_tos.tos_update_batched(surf, xy, valid))
+
+
+@pytest.mark.parametrize("arch", ["qwen2_0_5b", "olmoe_1b_7b",
+                                  "deepseek_v3_671b", "zamba2_1_2b"])
+@pytest.mark.parametrize("greedy", [True, False])
+def test_lm_serve_step_on_cuda_equals_cpu(cuda, arch, greedy):
+    """The LM scaffold's serve step (float32 smoke config, TF32 off) on the
+    card against the host, same weights and keys: next tokens equal,
+    logits and caches within 1e-4 * max(1, max|cpu|)."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import tree_map
+    from repro_torch.train.train_step import make_serve_step
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = dataclasses.replace(configs.get_smoke(arch),
+                              param_dtype=torch.float32,
+                              act_dtype=torch.float32)
+    params, _ = T.init_params(cfg, torch.Generator("cpu").manual_seed(0))
+    on_card = tree_map(lambda a: a.to(cuda), params)
+    step = make_serve_step(cfg, greedy=greedy, temperature=0.8)
+    b, length = 3, 16
+    toks = torch.tensor([[1], [2], [3]], dtype=torch.int32)
+    runs = {}
+    for dev, p in (("cpu", params), (cuda, on_card)):
+        cache = T.zeros_cache(cfg, b, length, dev)
+        key = prng.prng_key(7, device=dev)
+        t, out = toks.to(dev), []
+        for pos in range(4):
+            key, sub = prng.split(key)
+            t, logits, cache = step(p, t, cache, pos, sub)
+            out.append((t.cpu(), logits.cpu(),
+                        tree_map(lambda a: a.cpu(), cache)))
+        runs[str(dev)] = out
+    for (t_c, l_c, c_c), (t_g, l_g, c_g) in zip(runs["cpu"], runs["cuda"]):
+        assert torch.equal(t_g, t_c)
+        for got, want in [(l_g, l_c)] + [
+                (g, w) for g, w in zip(_leaves(c_g), _leaves(c_c))]:
+            bound = 1e-4 * max(1.0, float(want.abs().max()))
+            assert float((got.float() - want.float()).abs().max()) <= bound
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    return [tree]

@@ -1,7 +1,7 @@
-"""The port stands alone: importing ``repro_torch`` (every submodule) loads
-no jax, nothing of ``repro`` and nothing of the reference's top-level
-``benchmarks`` package, and no port file nor ``chip_smoke.py`` imports
-them."""
+"""The port stands alone: importing ``repro_torch`` (every submodule and
+subpackage) loads no jax, no ``ml_dtypes``, nothing of ``repro`` and
+nothing of the reference's top-level ``benchmarks`` package, and no port
+file nor ``chip_smoke.py`` imports them."""
 import ast
 import os
 import subprocess
@@ -15,8 +15,10 @@ pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 MODULES = sorted(
-    "repro_torch." + ".".join(p.relative_to(PORT).with_suffix("").parts)
-    for p in PORT.rglob("*.py") if p.name != "__init__.py"
+    "repro_torch." + ".".join(
+        (p.parent if p.name == "__init__.py" else p.with_suffix(""))
+        .relative_to(PORT).parts)
+    for p in PORT.rglob("*.py") if p.parent != PORT or p.name != "__init__.py"
 )
 
 
@@ -47,7 +49,11 @@ def test_port_has_the_slice_modules():
                  "benchmarks.bench_hwmodel", "benchmarks.bench_dvfs",
                  "benchmarks.bench_auc", "benchmarks.bench_throughput",
                  "benchmarks.bench_tos_kernels", "benchmarks.bounds",
-                 "benchmarks.timing", "core.baselines", "events.aer"):
+                 "benchmarks.timing", "core.baselines", "events.aer",
+                 "configs", "configs.qwen2_0_5b", "configs.deepseek_v3_671b",
+                 "models.common", "models.attention", "models.mlp",
+                 "models.ssm", "models.transformer", "train.train_step",
+                 "launch.serve"):
         assert "repro_torch." + name in MODULES
     for src in ("fused_step", "harris", "compact", "tos_update", "tos_count"):
         assert (PORT / "csrc" / f"{src}.cu").is_file()
@@ -60,7 +66,7 @@ def test_import_loads_no_jax():
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro',\n"
-        "                                    'benchmarks'))\n"
+        "                                    'benchmarks', 'ml_dtypes'))\n"
         "assert not bad, bad\n"
         "print('clean')\n"
     )
@@ -78,4 +84,4 @@ def test_import_loads_no_jax():
 )
 def test_no_reference_imports(path):
     assert not _imported_roots(path) & {"repro", "jax", "jaxlib",
-                                        "benchmarks"}
+                                        "benchmarks", "ml_dtypes"}
