@@ -26,6 +26,22 @@ checkout of this repository.  Phases, each printing its own lines:
      against host within ``LM_F32``; and ``forward_prefill`` of 2,048
      tokens at qwen2-0.5b's width, 2 layers, through the blockwise
      attention, card against host;
+  1c. the LM scaffold's training path (M11b; plain PyTorch autograd and
+     AdamW, no kernel of the port), lines ``[train]``: the train CLI
+     (``repro_torch.launch.train.main``) at qwen2-0.5b's width, batch 8,
+     seq 256, 30 steps, checkpoints every 15 in a fresh directory (ms per
+     step, median of steps 4-30, tokens/s, peak memory, first-3 and
+     last-3 mean loss, the seconds of the async and the final saves), then
+     a second call on that directory that must take no step and return
+     bit-equal parameters; ``--microbatches 2 --compress-grads``, 4 steps,
+     finite losses; remat ``none`` / ``dots`` / ``full``, one step each
+     (ms, peak memory; the gradients bit-equal, else the differing leaves
+     named and held to the host bound; ``full``'s peak below ``none``'s);
+     30 steps on one fixed batch, whose loss must fall (the CLI's
+     random-walk stream leaves it at ln(vocab) over 30 steps), with a
+     profiled step (launches, device busy, unprofiled wall, idle share);
+     one float32 step at full width, 2 layers, batch 2, seq 64, card
+     against host within the CPU tests' bounds (``TRAIN_*``);
   2. K1 (fused chunk step) in place (``fused_step_cuda_``), functional
      and under a lane mask against its plain PyTorch version on the card,
      on ``K1_CASES`` (180x240 and 1280x720 at 1 and 4 lanes; E of 1, 300
@@ -2787,6 +2803,326 @@ def lm_phase(smi, *, device="cuda", full=True):
           + f"; phase {time.perf_counter() - t_phase:.1f} s")
 
 
+# --- 1c: the LM scaffold's training path (M11b) ------------------------
+# No kernel of the port lies on this path either: autograd through the
+# forward, per-leaf AdamW and the checkpoint writer, held card against
+# host.  Bounds: those of the CPU tests (tests/_torch_lm_harness.py).
+TRAIN_GRAD_LEAF = 1e-3     # per leaf: max|dg| <= 1e-3 * max|g_host(leaf)|
+TRAIN_GRAD_TREE = 1e-6     #   + 1e-6 * max|g_host(tree)|
+TRAIN_REL = 1e-4           # the loss, relative
+TRAIN_GNORM = 1e-3         # grad_norm, relative (the per-leaf bound's scale)
+TRAIN_CLOSE = 1e-5         # all but TRAIN_SHARE of the parameter elements
+TRAIN_SHARE = 1e-3         # within TRAIN_CLOSE; every one within 2*lr+1e-6
+
+
+def _train_grads_close(got, want, what):
+    """The per-leaf gradient bound over two trees; returns the worst
+    leaf's share of its bound."""
+    got, want = _lm_leaves(got), _lm_leaves(want)
+    top = max(float(w.abs().max()) for w in want)
+    worst = 0.0
+    for g, w in zip(got, want):
+        g = g.detach().float().cpu()
+        if not bool(g.isfinite().all()):
+            raise AssertionError(f"{what}: non-finite gradients")
+        bound = TRAIN_GRAD_LEAF * float(w.abs().max()) + TRAIN_GRAD_TREE * top
+        err = float((g - w.float()).abs().max())
+        if err > bound:
+            raise AssertionError(f"{what}: max |dg| {err:.3g} > {bound:.3g}")
+        worst = max(worst, err / bound)
+    return worst
+
+
+def train_phase(smi, *, device="cuda", full=True):
+    """Phase 1c ``[train]``: the LM scaffold's training path on ``device``:
+    the train CLI at qwen2-0.5b's width (batch 8, seq 256, 30 steps,
+    checkpoints every 15, then a resumed call that takes no step), the
+    microbatched and compressed CLI, the three remat settings, a profiled
+    step, and one float32 step at full width, 2 layers, card against host.
+    ``full=False`` runs the smoke config (a rehearsal on the CPU)."""
+    import contextlib
+    import dataclasses
+    import io
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import configs
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import transformer as T
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.train_step import make_grad_fn, make_train_step
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    arch = "qwen2-0.5b"
+    cfg = configs.get(arch) if full else configs.get_smoke(arch)
+    batch, seq, steps = 8, 256, 30
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def peak_reset():
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+
+    def peak():
+        return torch.cuda.max_memory_allocated(dev) if cuda else float("nan")
+
+    # --- 1. the train CLI at full width, as a user runs it --------------
+    record = {"dt": [], "loss": [], "snapshot": [], "write": []}
+
+    class Recording(train_cli.TrainSupervisor):
+        def run(self, *a, on_metrics, **k):
+            def both(step, m):
+                record["dt"].append(m["dt"])
+                record["loss"].append(m["loss"])
+                on_metrics(step, m)
+            return super().run(*a, on_metrics=both, **k)
+
+    def timed(name, fn):
+        def wrapper(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                record[name].append(time.perf_counter() - t0)
+        return wrapper
+
+    saved = (train_cli.TrainSupervisor, ckpt.save_async, ckpt._write)
+    train_cli.TrainSupervisor = Recording
+    ckpt.save_async = timed("snapshot", ckpt.save_async)
+    ckpt._write = timed("write", ckpt._write)
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        base = ["--arch", arch, "--device", dev.type,
+                "--batch", str(batch), "--seq", str(seq)] + \
+            ([] if full else ["--smoke"])
+        argv = base + ["--steps", str(steps), "--ckpt-every", "15",
+                       "--ckpt-dir", f"{root}/cli"]
+        sync()
+        peak_reset()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            first = train_cli.main(argv)
+        sync()
+        wall = time.perf_counter() - t0
+        mem = peak()
+        dt, losses = record["dt"], record["loss"]
+        if len(dt) != steps or not all(np.isfinite(losses)):
+            raise AssertionError(f"[train] CLI: {len(dt)} steps, losses "
+                                 f"{losses}")
+        # the random-walk stream is a bigram task over 151,936 tokens: 30
+        # steps leave the loss at ln(vocab) (PERF.md); the fall is held on
+        # one fixed batch below
+        head, tail = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
+        ms = float(np.median(dt[3:])) * 1e3
+        # three writes: the async saves at 15 and 30, the final save at 30
+        snap, writes = record["snapshot"], record["write"]
+        if len(snap) != 2 or len(writes) != 3:
+            raise AssertionError(f"[train] saves: {snap}, {writes}")
+        size = sum(f.stat().st_size for f in
+                   Path(root, "cli", f"step_{steps:09d}").iterdir())
+        print(f"[train] {smi}: train CLI {arch}{'' if full else ' (smoke)'} "
+              f"({cfg.n_layers} layers, d {cfg.d_model}, vocab {cfg.vocab},"
+              f" {str(cfg.param_dtype).split('.')[-1]}, remat {cfg.remat}),"
+              f" batch {batch} x seq {seq}, {steps} steps: {ms:.2f} ms per "
+              f"step (median of steps 4-{steps}, host clock; min "
+              f"{min(dt[3:]) * 1e3:.2f}, max {max(dt[3:]) * 1e3:.2f}; first "
+              f"step {dt[0] * 1e3:.1f}), {batch * seq / ms * 1e3:.0f} "
+              f"tokens/s; peak memory {mem / 2**30:.3f} GiB "
+              f"(max_memory_allocated); loss first-3 mean {head:.4f} -> "
+              f"last-3 mean {tail:.4f}; whole call {wall:.1f} s")
+        print(f"[train] {smi}: checkpoints of {size / 2**30:.3f} GiB: async "
+              f"save host snapshot {snap[0]:.3f} / {snap[1]:.3f} s, its "
+              f"write on the thread {writes[0]:.3f} / {writes[1]:.3f} s; "
+              f"final save {writes[2]:.3f} s")
+        for line in buf.getvalue().splitlines():
+            print(f"[train]   | {line}")
+
+        # resumed: the same directory, no step, the same parameters
+        record["dt"].clear()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            again = train_cli.main(argv)
+        if record["dt"] or out.getvalue():
+            raise AssertionError(f"[train] the resumed call took "
+                                 f"{len(record['dt'])} steps")
+        diff = [i for i, (a, b) in enumerate(zip(_lm_leaves(again),
+                                                 _lm_leaves(first)))
+                if a.dtype != b.dtype or a.device != b.device
+                or not torch.equal(a, b)]
+        if diff:
+            raise AssertionError(f"[train] resumed leaves {diff} differ")
+        print(f"[train] {smi}: a second call on the same directory took "
+              f"no step and returned parameters bit-equal to the first's "
+              f"({time.perf_counter() - t0:.1f} s, restore and final save)")
+        del first, again
+        shutil.rmtree(f"{root}/cli")
+
+        # --- 2. microbatches and compression ---------------------------
+        record["dt"].clear()
+        record["loss"].clear()
+        with contextlib.redirect_stdout(io.StringIO()):
+            train_cli.main(base + ["--steps", "4", "--microbatches", "2",
+                                   "--compress-grads", "--ckpt-dir",
+                                   f"{root}/mb"])
+        if len(record["loss"]) != 4 or not all(np.isfinite(record["loss"])):
+            raise AssertionError(f"[train] --microbatches 2 "
+                                 f"--compress-grads: {record['loss']}")
+        print(f"[train] {smi}: --microbatches 2 --compress-grads, 4 steps: "
+              f"losses {[round(x, 4) for x in record['loss']]}, "
+              f"{float(np.median(record['dt'][1:])) * 1e3:.2f} ms per step")
+        shutil.rmtree(f"{root}/mb")
+    finally:
+        train_cli.TrainSupervisor, ckpt.save_async, ckpt._write = saved
+        shutil.rmtree(root, ignore_errors=True)
+
+    # --- 3. remat none / dots / full, one step each ---------------------
+    params, _ = T.init_params(cfg, torch.Generator(dev).manual_seed(0))
+    opt = AdamWConfig(lr=3e-4, warmup_steps=min(20, steps // 10 + 1),
+                      total_steps=steps)          # the CLI's schedule
+    opt_state = adamw_init(params, opt)
+    data = train_cli.synthetic_batch_fn(cfg, batch, seq, device=dev)(0)
+    grads, stats = {}, {}
+    settings = ("none", "dots", "full")
+    for remat in settings:
+        step = make_train_step(dataclasses.replace(cfg, remat=remat), opt)
+        sync()
+        peak_reset()
+        t0 = time.perf_counter()
+        out = step(params, opt_state, data)
+        sync()
+        stats[remat] = ((time.perf_counter() - t0) * 1e3, peak(),
+                        float(out[2]["loss"]))
+        del out, step
+    for remat in settings:
+        c = dataclasses.replace(cfg, remat=remat)
+        grads[remat] = make_grad_fn(c)(params, data)[1]
+    leaves = {r: _lm_leaves(g) for r, g in grads.items()}
+    names = [k for k, _ in _lm_paths(grads["none"])]
+    unequal = {r: [n for n, a, b in zip(names, leaves[r], leaves["none"])
+                   if not torch.equal(a, b)] for r in ("dots", "full")}
+    for r, bad in unequal.items():
+        if bad:      # name the leaves, and hold them to the host bound
+            err = _train_grads_close(leaves[r], [x.float().cpu() for x in
+                                                 leaves["none"]],
+                                     f"[train] remat {r}")
+            print(f"[train] {smi}: remat {r} gradients not bit-equal to "
+                  f"none's in {bad} (worst leaf at {err:.3f} of its bound)")
+    if cuda and not stats["full"][1] < stats["none"][1]:
+        raise AssertionError(f"[train] remat full's peak memory is not "
+                             f"below none's: {stats}")
+    print(f"[train] {smi}: remat, one step each at batch {batch} x seq "
+          f"{seq}: " + "; ".join(
+              f"{r} {ms:.2f} ms, peak {mem / 2**30:.3f} GiB, loss {loss:.4f}"
+              for r, (ms, mem, loss) in stats.items())
+          + "; gradients of dots and full "
+          + ("bit-equal to none's" if not any(unequal.values())
+             else "within the host bound of none's"))
+    del grads, leaves
+
+    # --- 4. 30 steps on one fixed batch: a profiled step, and the fall ---
+    step = make_train_step(cfg, opt)
+    state = [params, opt_state]
+    fixed = []
+
+    def run(k):
+        for _ in range(k):
+            state[0], state[1], m = step(state[0], state[1], data)
+            fixed.append(m["loss"])
+
+    run(2)
+    sync()
+    n = 2
+    if cuda:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run(n)
+            sync()
+        rows = [r for r in prof.key_averages()
+                if str(r.device_type).endswith("CUDA")]
+        launches = sum(r.count for r in rows) / n
+        dev_ms = sum(r.self_device_time_total for r in rows) / 1e3 / n
+        top = sorted(rows, key=lambda r: -r.self_device_time_total)[:5]
+    else:
+        launches = dev_ms = float("nan")
+        top = []
+    t0 = time.perf_counter()
+    run(3)
+    sync()
+    wall = (time.perf_counter() - t0) / 3 * 1e3
+    run(steps - len(fixed))
+    fixed = [float(x) for x in fixed]
+    f_head, f_tail = np.mean(fixed[:3]), np.mean(fixed[-3:])
+    if not f_tail < f_head:
+        raise AssertionError(f"[train] the loss did not fall on one fixed "
+                             f"batch: {fixed}")
+    print(f"[train] {smi}: {arch} train step, batch {batch} x seq {seq}, "
+          f"remat {cfg.remat}: {launches:.1f} kernel and copy launches per "
+          f"step, device busy {dev_ms:.3f} ms, unprofiled wall {wall:.3f} "
+          f"ms per step (idle share {1 - dev_ms / wall:.3f}); busiest: "
+          + ", ".join(f"{r.key[:40]} {r.self_device_time_total / 1e3 / n:.2f}"
+                      f" ms" for r in top))
+    print(f"[train] {smi}: {steps} steps on one fixed batch (the CLI's "
+          f"schedule): loss first-3 mean {f_head:.4f} -> last-3 mean "
+          f"{f_tail:.4f}; the CLI's stream: {head:.4f} -> {tail:.4f}")
+    del state, params, opt_state, data
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # --- 5. one float32 step at full width, 2 layers, card against host -
+    c = dataclasses.replace(cfg, n_layers=2, param_dtype=torch.float32,
+                            act_dtype=torch.float32)
+    params, host = _lm_model(c, dev)
+    runs = {}
+    for where, p in (("card", params), ("host", host)):
+        d = p["embed"].device
+        data = train_cli.synthetic_batch_fn(c, 2, 64, device=d)(0)
+        (_, _), g = make_grad_fn(c)(p, data)
+        p2, s2, m = make_train_step(c, opt)(p, adamw_init(p, opt), data)
+        runs[where] = (g, p2, {k: float(v) for k, v in m.items()})
+    (g_d, p_d, m_d), (g_h, p_h, m_h) = runs["card"], runs["host"]
+    for k, rel in (("loss", TRAIN_REL), ("grad_norm", TRAIN_GNORM)):
+        if abs(m_d[k] - m_h[k]) > rel * abs(m_h[k]):
+            raise AssertionError(f"[train] card vs host {k}: {m_d[k]} vs "
+                                 f"{m_h[k]}")
+    worst = _train_grads_close(g_d, g_h, "[train] card vs host gradients")
+    far = total = 0
+    err = 0.0
+    for a, b in zip(_lm_leaves(p_d), _lm_leaves(p_h)):
+        dlt = (a.cpu() - b).abs()
+        err = max(err, float(dlt.max()))
+        far += int((dlt > TRAIN_CLOSE).sum())
+        total += dlt.numel()
+    if err > 2 * opt.lr + 1e-6 or far > TRAIN_SHARE * total:
+        raise AssertionError(f"[train] card vs host params: max {err}, "
+                             f"{far} of {total} beyond {TRAIN_CLOSE}")
+    print(f"[train] {smi}: {arch} width, {c.n_layers} layers of "
+          f"{cfg.n_layers}, float32, batch 2 x seq 64, one step card vs "
+          f"host: loss {m_d['loss']:.6f} / {m_h['loss']:.6f}, grad_norm "
+          f"{m_d['grad_norm']:.6f} / {m_h['grad_norm']:.6f} (bounds "
+          f"{TRAIN_REL} and {TRAIN_GNORM} relative), gradients at worst {worst:.3f} of the "
+          f"per-leaf bound ({TRAIN_GRAD_LEAF} * max|g(leaf)| + "
+          f"{TRAIN_GRAD_TREE} * max|g|), params max |delta| {err:.3g}, "
+          f"{far} of {total} beyond {TRAIN_CLOSE}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    del params, host, runs, g_d, p_d
+    if cuda:
+        torch.cuda.empty_cache()
+
+
+def _lm_paths(tree, path=()):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _lm_paths(tree[k],
+                                                           (*path, k))]
+    return [("/".join(path), tree)]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2815,6 +3151,9 @@ def main() -> int:
 
     # --- 1b. the LM scaffold's serving path (no kernel of the port) -----
     lm_phase(smi)
+
+    # --- 1c. the LM scaffold's training path (no kernel of the port) ----
+    train_phase(smi)
 
     # --- 2. K1 against its plain version -------------------------------
     rng = np.random.default_rng(0)

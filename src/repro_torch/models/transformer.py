@@ -5,7 +5,7 @@
 Public surface:
     init_spec(cfg)            -> tree of ParamSpec (stacked layers)
     init_params(cfg, gen)     -> (params, logical_axes)
-    forward_train(params, batch, cfg) -> (loss, metrics)   [forward only]
+    forward_train(params, batch, cfg) -> (loss, metrics)
     forward_prefill(params, batch, cfg) -> last-position logits
     forward_prefill_cache(params, batch, cfg, cache_len)
                               -> (last logits, cache, next pos)
@@ -18,19 +18,26 @@ reference; its ``lax.scan`` over that axis is a Python loop here, its
 ``lax.cond`` an ``if``.  The reference's ``shard_act`` constraints are the
 identity on one card and are dropped.  ``forward_decode`` is functional:
 the caller's cache is left untouched.
+
+Training differentiates ``forward_train`` with autograd.  The per-layer
+bodies it runs (the decoder stack's, Whisper's encoder and decoder) go
+through ``_remat``, the reference's ``jax.checkpoint`` policy set by
+``cfg.remat``; decode does not.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.core.state import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import (ModelConfig, ParamSpec, init_dense,
-                                       make_rope, rms_norm,
+from repro_torch.models.common import (ModelConfig, ParamSpec, _leaves,
+                                       init_dense, make_rope, rms_norm,
                                        sinusoidal_positions, tree_map)
 
 __all__ = [
@@ -136,15 +143,61 @@ def init_params(cfg: ModelConfig, gen: torch.Generator):
 
 
 def _layers(tree: dict) -> list[dict]:
-    """The per-layer slices of a tree stacked on axis 0."""
+    """The per-layer slices of a tree stacked on axis 0.  One ``unbind``
+    per leaf: its backward stacks the layers' gradients once, where
+    indexing each layer would materialise a zero-padded copy of the whole
+    stacked leaf per layer."""
     first = tree
     while isinstance(first, dict):
         first = next(iter(first.values()))
-    return [tree_map(lambda a: a[i], tree) for i in range(first.shape[0])]
+    split = tree_map(lambda a: a.unbind(0), tree)
+    return [tree_map(lambda s: s[i], split) for i in range(first.shape[0])]
 
 
 def _stack_trees(trees: list[dict]) -> dict:
     return tree_map(lambda *xs: torch.stack(xs, 0), *trees)
+
+
+# ---------------------------------------------------------------------------
+# Rematerialisation (the reference's ``_remat``)
+# ---------------------------------------------------------------------------
+
+_ATEN = torch.ops.aten
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """JAX's ``checkpoint_dots_with_no_batch_dims``: save the output of a
+    matrix product that has no batch dimension, recompute the rest.
+    ``torch.einsum`` reaches ``aten.bmm`` with a batch extent of 1 for the
+    projections and with the batch (and head) extents for the attention
+    scores and values and the experts, so a ``bmm`` whose batch extent is
+    1 counts as unbatched.  (An attention product at batch 1 with one KV
+    head would be saved too: more memory, the same values.)"""
+    if op in (_ATEN.mm.default, _ATEN.addmm.default) or (
+            op is _ATEN.bmm.default and args[0].shape[0] == 1):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` under ``cfg.remat``: ``"none"`` saves every activation for the
+    backward, ``"full"`` saves only ``fn``'s inputs and recomputes its body
+    in the backward, and any other value (``"dots"``) saves only the
+    unbatched matrix products (``_save_dots``).  Recomputation gives the
+    same values, so the gradients do not depend on the setting."""
+    if cfg.remat == "none":
+        return fn
+    kw = {} if cfg.remat == "full" else {"context_fn": functools.partial(
+        ckpt.create_selective_checkpoint_contexts, _save_dots)}
+
+    def wrapped(*args):
+        if not (torch.is_grad_enabled() and any(
+                isinstance(t, torch.Tensor) and t.requires_grad
+                for a in args for _, t in _leaves(a))):
+            return fn(*args)       # inference: nothing to save or recompute
+        return ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return wrapped
 
 
 # ---------------------------------------------------------------------------
@@ -188,17 +241,22 @@ def _decoder_stack(params, x, cos, sin, cfg: ModelConfig):
     """The stacked blocks in turn; returns (h, aux_loss_sum)."""
     x0 = x
     shared = params.get("shared_attn")
-    h, aux = x, 0.0
-    for idx, lp in enumerate(_layers(params["blocks"])):
+
+    def body(lp, h, idx):
         if cfg.family == "ssm":
-            h, a = _ssm_block(lp, h, cfg)
-        elif cfg.family == "hybrid":
+            return _ssm_block(lp, h, cfg)
+        if cfg.family == "hybrid":
             h, a = _ssm_block(lp, h, cfg)
             period = cfg.shared_attn_every
             if period and idx % period == period - 1:
                 h = _shared_block_apply(shared, h, x0, cos, sin, cfg)
-        else:
-            h, a = _dense_block(lp, h, cos, sin, cfg)
+            return h, a
+        return _dense_block(lp, h, cos, sin, cfg)
+
+    body = _remat(body, cfg)
+    h, aux = x, 0.0
+    for idx, lp in enumerate(_layers(params["blocks"])):
+        h, a = body(lp, h, idx)
         aux = aux + a
     return h, aux
 
@@ -252,7 +310,7 @@ def _decoder_input(params, batch, cfg: ModelConfig):
 
 
 def forward_train(params, batch, cfg: ModelConfig):
-    """The training loss, forward only.  batch: tokens (B,S) int, labels
+    """The training loss and its metrics.  batch: tokens (B,S) int, labels
     (B,S) int, mask (B,S) f32; vlm adds 'img_embeds' (B, n_img, D); encdec
     adds 'frames' (B, T, D)."""
     if cfg.family == "encdec":
@@ -377,14 +435,19 @@ def _encode(params, frames, cfg: ModelConfig):
         device=frames.device, dtype=cfg.act_dtype)
     h = frames + pos_enc[None]
     zero = torch.zeros((1, 1, t, t), dtype=torch.float32, device=h.device)
-    for lp in _layers(params["enc"]):
+
+    def body(lp, h):
         a = rms_norm(h, lp["norm1"], cfg.norm_eps)
         # bidirectional: no causal mask
         q, k, v = attn._qkv(lp["attn"], a, cfg)
         o = attn._attend(q, k, v, zero, cfg)
         h = h + torch.einsum("bshk,hkd->bsd", o, lp["attn"]["wo"])
         m = rms_norm(h, lp["norm2"], cfg.norm_eps)
-        h = h + mlp_mod.mlp_apply(lp["mlp"], m)
+        return h + mlp_mod.mlp_apply(lp["mlp"], m)
+
+    body = _remat(body, cfg)
+    for lp in _layers(params["enc"]):
+        h = body(lp, h)
     return rms_norm(h, params["enc_norm"], cfg.norm_eps)
 
 
@@ -395,14 +458,19 @@ def _encdec_train(params, batch, cfg: ModelConfig):
     y = _embed(params, tokens, cfg)
     cos, sin = make_rope(torch.arange(s, device=y.device)[None, :],
                          cfg.head_dim, cfg.rope_theta)
-    h = y
-    for lp in _layers(params["dec"]):
+
+    def body(lp, h):
         a = rms_norm(h, lp["norm1"], cfg.norm_eps)
         h = h + attn.gqa_train(lp["attn"], a, cos, sin, cfg)
         cx = rms_norm(h, lp["normx"], cfg.norm_eps)
         h = h + _xattn_train(lp["xattn"], cx, enc_out, cfg)
         m = rms_norm(h, lp["norm2"], cfg.norm_eps)
-        h = h + mlp_mod.mlp_apply(lp["mlp"], m)
+        return h + mlp_mod.mlp_apply(lp["mlp"], m)
+
+    body = _remat(body, cfg)
+    h = y
+    for lp in _layers(params["dec"]):
+        h = body(lp, h)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     loss = _chunked_ce(params, h, batch["labels"], batch["mask"], cfg)
     return loss, {"ce": loss}

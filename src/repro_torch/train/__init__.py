@@ -1,2 +1,10 @@
-"""Step builders of the LM scaffold (the port of ``repro.train``); only the
-serve step so far (``train_step.make_serve_step``)."""
+"""Training substrate of the LM scaffold (the port of ``repro.train``):
+optimizer, step builders, checkpointing, fault tolerance, gradient
+compression."""
+from repro_torch.train import (  # noqa: F401
+    checkpoint,
+    compression,
+    fault_tolerance,
+    optimizer,
+    train_step,
+)

@@ -730,3 +730,55 @@ def _leaves(tree):
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _leaves(tree[k])]
     return [tree]
+
+
+@pytest.mark.parametrize("arch", ["qwen2_0_5b", "olmoe_1b_7b",
+                                  "whisper_tiny"])
+def test_lm_train_step_on_cuda_equals_cpu(cuda, arch):
+    """One float32 train step of the LM scaffold (smoke config, TF32 off)
+    on the card against the host, same weights and batch: the loss within
+    1e-4 and grad_norm within 1e-3 relative (Whisper's grad_norm is 1.2e-4
+    apart on an H100); per leaf ``max|dg| <= 2e-3 * max|g_cpu(leaf)| +
+    1e-6 * max|g_cpu(tree)|``, twice the CPU tests' JAX-against-port
+    bound (``tests/_torch_lm_harness.py``): cuBLAS sums float32 in another
+    order than the host, and one Whisper leaf is 1.26e-3 of its largest
+    gradient apart on an H100; parameters within ``2 * lr + 1e-6``, all
+    but 1e-3 of the elements within 1e-5; the state stays on the card."""
+    from repro_torch import configs
+    from repro_torch.launch.train import synthetic_batch_fn
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import _leaves as named, tree_map
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.train_step import make_grad_fn, make_train_step
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = dataclasses.replace(configs.get_smoke(arch),
+                              param_dtype=torch.float32,
+                              act_dtype=torch.float32)
+    opt = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=3)
+    params, _ = T.init_params(cfg, torch.Generator("cpu").manual_seed(0))
+    runs = {}
+    for dev in ("cpu", cuda):
+        p = tree_map(lambda a: a.to(dev), params)
+        batch = synthetic_batch_fn(cfg, 4, 32, device=dev)(0)
+        (_, _), grads = make_grad_fn(cfg)(p, batch)
+        p2, s2, m = make_train_step(cfg, opt)(p, adamw_init(p, opt), batch)
+        assert s2["step"].device.type == torch.device(dev).type
+        assert s2["step"].dtype == torch.int32
+        runs[str(dev)] = (list(named(grads)), _leaves(p2),
+                          {k: float(v) for k, v in m.items()})
+    (g_c, p_c, m_c), (g_g, p_g, m_g) = runs["cpu"], runs["cuda"]
+    assert set(m_g) == set(m_c)
+    for k, rel in (("loss", 1e-4), ("grad_norm", 1e-3)):
+        assert abs(m_g[k] - m_c[k]) <= rel * abs(m_c[k]), k
+    top = max(float(g.abs().max()) for _, g in g_c)
+    for (path, got), (_, want) in zip(g_g, g_c):
+        bound = 2e-3 * float(want.abs().max()) + 1e-6 * top
+        err = float((got.cpu() - want).abs().max())
+        assert err <= bound, (path, err, bound)
+    far = total = 0
+    for got, want in zip(p_g, p_c):
+        d = (got.cpu() - want).abs()
+        assert float(d.max()) <= 2 * opt.lr + 1e-6
+        far += int((d > 1e-5).sum())
+        total += d.numel()
+    assert far <= 1e-3 * total

@@ -53,7 +53,9 @@ def test_port_has_the_slice_modules():
                  "configs", "configs.qwen2_0_5b", "configs.deepseek_v3_671b",
                  "models.common", "models.attention", "models.mlp",
                  "models.ssm", "models.transformer", "train.train_step",
-                 "launch.serve"):
+                 "launch.serve", "train.optimizer", "train.compression",
+                 "train.checkpoint", "train.fault_tolerance",
+                 "launch.train"):
         assert "repro_torch." + name in MODULES
     for src in ("fused_step", "harris", "compact", "tos_update", "tos_count"):
         assert (PORT / "csrc" / f"{src}.cu").is_file()
