@@ -42,6 +42,20 @@ checkout of this repository.  Phases, each printing its own lines:
      profiled step (launches, device busy, unprofiled wall, idle share);
      one float32 step at full width, 2 layers, batch 2, seq 64, card
      against host within the CPU tests' bounds (``TRAIN_*``);
+  1d. the LM examples (M11d), lines ``[lm_examples]``: ``serve_lm`` at its
+     defaults (mamba2-370m smoke, batch 4, cache 64, 24 steps) and with
+     ``--arch zamba2-1.2b`` (tok/s, ms per step), replayed on the CLI's
+     tokens in bf16 on the card and the host and in float32 on the host
+     within ``[lm]``'s bf16 bound; ``train_lm`` in full (lm-100m, 300
+     steps, batch 4, seq 128, lr 1e-3, checkpoints at 100, 200 and 300:
+     ms per step, tokens/s, peak memory, the CLI's first-30 -> last-30
+     mean loss);
+  1e. the mesh layer (M11c-1a), lines ``[mesh]``: the serve and train CLIs
+     on their 1x1 mesh (NCCL) against the same CLIs with the mesh left
+     inactive (seqs, losses and final parameters bit-equal); olmoe-1b-7b
+     at full width, 2 layers, float32, ``moe_a2a=True`` on the mesh (its
+     all-to-alls counted) against ``moe_apply`` without it: logits, aux
+     and a train step's gradients;
   2. K1 (fused chunk step) in place (``fused_step_cuda_``), functional
      and under a lane mask against its plain PyTorch version on the card,
      on ``K1_CASES`` (180x240 and 1280x720 at 1 and 4 lanes; E of 1, 300
@@ -3116,6 +3130,333 @@ def train_phase(smi, *, device="cuda", full=True):
         torch.cuda.empty_cache()
 
 
+def lm_examples_phase(smi, *, device="cuda", serve_steps=24,
+                      train_steps=300, train_cfg=None):
+    """Phase 1d ``[lm_examples]``: the LM examples as a user runs them on
+    ``device``: ``serve_lm`` at its defaults (mamba2-370m smoke, batch 4,
+    cache 64) and with ``--arch zamba2-1.2b``, each replayed on the CLI's
+    tokens and held to ``[lm]``'s bf16 bound (the card's logits no farther
+    from the host's float32 run than the host's bf16 run, plus ``LM_BF16``
+    of the largest logit);
+    then ``train_lm`` in full (the reference's flags: 300 steps, batch 4,
+    seq 128, lr 1e-3, a checkpoint every 100).  ``serve_steps``,
+    ``train_steps`` and ``train_cfg`` (a stand-in for ``lm-100m``) cut it
+    for a rehearsal on the CPU."""
+    import contextlib
+    import dataclasses
+    import io
+    import re
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.examples import serve_lm, train_lm
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import tree_map
+    from repro_torch.train import checkpoint as ckpt
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    host = torch.device("cpu")
+
+    # --- 1. serve_lm, card against the host -------------------------------
+    # The CLI's picks are replayed (the same weights, the card's tokens fed)
+    # in bf16 on the card and on the host and in float32 on the host: as in
+    # [lm], the card's bf16 logits may sit no farther from the float32 run
+    # than the host's bf16 logits do, plus LM_BF16 of the largest logit.
+    for arch in ("mamba2-370m", "zamba2-1.2b"):
+        drawn = {}
+        init = T.init_params
+
+        def recording(cfg, gen):
+            out = init(cfg, gen)
+            drawn["params"] = out[0]
+            return out
+
+        argv = ["--device", dev.type] + (
+            [] if arch == "mamba2-370m" else ["--arch", arch])
+        T.init_params = recording
+        bufs = [io.StringIO(), io.StringIO()]
+        try:
+            for buf, steps in zip(bufs, (2, serve_steps)):    # warm-up, run
+                with contextlib.redirect_stdout(buf):
+                    seqs = serve_lm.main(argv + ["--steps", str(steps)])
+        finally:
+            T.init_params = init
+        cold, first = (buf.getvalue().splitlines()[0] for buf in bufs)
+        m = re.match(r"decoded (\d+) steps x batch (\d+) in ([\d.]+)s "
+                     r"\(([\d.]+) tok/s\)", first)
+        cfg = configs.get_smoke(arch)
+        if m is None or seqs.shape != (4, serve_steps + 1) or \
+                seqs.min() < 0 or seqs.max() >= cfg.vocab:
+            raise AssertionError(f"[lm_examples] serve_lm {arch}: "
+                                 f"{first!r}, seqs {seqs.shape}")
+        fed = torch.from_numpy(seqs).to(torch.int32)
+        forced = [fed[:, i:i + 1] for i in range(serve_steps + 1)]
+        card = drawn["params"]
+        bf_host = tree_map(lambda a: a.detach().to(host), card)
+        f32 = dataclasses.replace(cfg, param_dtype=torch.float32,
+                                  act_dtype=torch.float32)
+        replay = {}
+        for name, c, p, where in (
+                ("card", cfg, card, dev), ("host", cfg, bf_host, host),
+                ("f32", f32, tree_map(lambda a: a.float(), bf_host), host)):
+            replay[name] = [lg[:, -1].float().cpu() for lg in _lm_decode(
+                c, p, where, 4, 64, serve_steps, forced[0],
+                forced=forced)[0]]
+        truth = replay["f32"]
+        e_card, scale = _lm_err(replay["card"], truth, float("inf"), 0.0, "")
+        e_host = _lm_err(replay["host"], truth, float("inf"), 0.0, "")[0]
+        if e_card > e_host + LM_BF16 * scale:
+            raise AssertionError(f"[lm_examples] serve_lm {arch} bf16: card "
+                                 f"{e_card:.4g} from float32, host "
+                                 f"{e_host:.4g}, max|logit| {scale:.4g}")
+        picks = fed[:, 1:].T.long()
+        same_card = sum(int(torch.equal(lg.argmax(-1), pk))
+                        for lg, pk in zip(replay["card"], picks))
+        flips = int(sum(int((lg.argmax(-1) != pk).sum())
+                        for lg, pk in zip(truth, picks)))
+        secs = float(m.group(3))
+        print(f"[lm_examples] {smi}: serve_lm --arch {arch} (smoke, "
+              f"{str(cfg.param_dtype).split('.')[-1]}, batch 4, cache 64, "
+              f"{serve_steps} steps, after a 2-step warm-up call: {cold}): "
+              f"{first}; {secs / serve_steps * 1e3:.3f} ms per step (host "
+              f"clock); replayed on the CLI's tokens: bf16 max |delta| from "
+              f"the host's float32 run card {e_card:.4g}, host {e_host:.4g} "
+              f"(bound host + {LM_BF16} * {scale:.4g}); the card replay's "
+              f"argmax is the CLI's pick at {same_card} of {serve_steps} "
+              f"steps; {flips} of {4 * serve_steps} picks differ from the "
+              f"float32 argmax")
+        del drawn, card, bf_host, replay
+
+    # --- 2. train_lm in full ----------------------------------------------
+    record = {"dt": [], "loss": [], "write": []}
+
+    class Recording(train_cli.TrainSupervisor):
+        def run(self, *a, on_metrics, **k):
+            def both(step, m):
+                record["dt"].append(m["dt"])
+                record["loss"].append(m["loss"])
+                on_metrics(step, m)
+            return super().run(*a, on_metrics=both, **k)
+
+    def timed_write(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return write(*a, **k)
+        finally:
+            record["write"].append(time.perf_counter() - t0)
+
+    saved = (train_cli.TrainSupervisor, ckpt._write, train_lm.CONFIG)
+    write = ckpt._write
+    train_cli.TrainSupervisor, ckpt._write = Recording, timed_write
+    if train_cfg is not None:
+        train_lm.CONFIG = train_cfg
+    cfg = train_lm.CONFIG
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_lm_")
+    try:
+        if cuda:
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            params = train_lm.main(["--device", dev.type, "--steps",
+                                    str(train_steps), "--ckpt-dir",
+                                    f"{root}/ck"])
+        if cuda:
+            torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        mem = torch.cuda.max_memory_allocated(dev) if cuda else float("nan")
+        lines = buf.getvalue().splitlines()
+        dt, losses = record["dt"], record["loss"]
+        kept = sorted(p.name for p in Path(root, "ck").iterdir()
+                      if p.name.startswith("step_"))
+        # the async saves every 100 steps, the final save at the last step
+        want = [f"step_{s:09d}" for s in
+                sorted({*range(100, train_steps + 1, 100), train_steps})]
+        summary = [ln for ln in lines if ln.startswith("first-")]
+        if len(dt) != train_steps or not np.isfinite(losses).all() \
+                or kept != want or len(summary) != 1 or not all(
+                    bool(a.isfinite().all()) for a in _lm_leaves(params)):
+            raise AssertionError(f"[lm_examples] train_lm: {len(dt)} steps,"
+                                 f" checkpoints {kept}, lines {lines[-2:]}")
+        ms = float(np.median(dt[3:])) * 1e3
+        tokens = 4 * 128
+        print(f"[lm_examples] {smi}: train_lm ({lines[0]}; {cfg.n_layers} "
+              f"layers, d {cfg.d_model}, vocab {cfg.vocab}, "
+              f"{str(cfg.param_dtype).split('.')[-1]}, remat {cfg.remat}), "
+              f"batch 4 x seq 128, lr 1e-3, {train_steps} steps: {ms:.2f} ms "
+              f"per step (median of steps 4-{train_steps}, host clock; min "
+              f"{min(dt[3:]) * 1e3:.2f}, max {max(dt[3:]) * 1e3:.2f}; first "
+              f"step {dt[0] * 1e3:.1f}), {tokens / ms * 1e3:.0f} tokens/s; "
+              f"peak memory {mem / 2**30:.3f} GiB (max_memory_allocated); "
+              f"{summary[0]} (ln {cfg.vocab} = {np.log(cfg.vocab):.2f}); "
+              f"checkpoints {kept}, writes "
+              f"{', '.join(f'{w:.2f}' for w in record['write'])} s; whole "
+              f"call {wall:.1f} s")
+        for line in lines:
+            if line.startswith("step "):
+                print(f"[lm_examples]   | {line}")
+    finally:
+        train_cli.TrainSupervisor, ckpt._write, train_lm.CONFIG = saved
+        shutil.rmtree(root, ignore_errors=True)
+    del params
+    if cuda:
+        torch.cuda.empty_cache()
+    print(f"[lm_examples] {smi}: phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def mesh_phase(smi, *, device="cuda", full=True):
+    """Phase 1e ``[mesh]``: the serve and train CLIs under their local
+    mesh (1x1, NCCL on the card) against the same CLIs with the mesh left
+    inactive (seqs, every loss and the final parameters bit-equal), and
+    olmoe-1b-7b at full width, its depth cut (``LM_DEPTH``), float32, with
+    ``moe_a2a=True`` on the mesh against ``moe_a2a=False`` without it:
+    logits, aux and a train step's gradients equal (0, or within
+    ``LM_F32`` / ``[train]``'s bound).  ``full=False`` runs smoke configs
+    (a rehearsal on the CPU, gloo)."""
+    import contextlib
+    import dataclasses
+    import io
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch import compat, configs
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.meshctx import use_mesh_rules
+    from repro_torch.models import transformer as T
+    from repro_torch.train.train_step import make_grad_fn
+
+    dev = torch.device(device)
+    t_phase = time.perf_counter()
+    get = configs.get if full else configs.get_smoke
+    smoke = [] if full else ["--smoke"]
+
+    def no_mesh(mesh, rules):
+        return contextlib.nullcontext()
+
+    # --- 1. the CLIs with their mesh active and inactive ------------------
+    arch = "qwen2-0.5b"
+    argv = ["--arch", arch, "--device", dev.type, "--steps", "8", *smoke]
+    runs = {}
+    for name, ctx in (("mesh", serve_cli.use_mesh_rules), ("none", no_mesh)):
+        saved = serve_cli.use_mesh_rules
+        serve_cli.use_mesh_rules = ctx
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                runs[name] = serve_cli.main(argv)
+        finally:
+            serve_cli.use_mesh_rules = saved
+    mesh = make_local_mesh(device=dev)
+    backend = dist.get_backend()
+    if not np.array_equal(runs["mesh"], runs["none"]):
+        raise AssertionError("[mesh] serve CLI: seqs differ under the mesh")
+    print(f"[mesh] {smi}: the CLIs' local mesh: {mesh} over a {backend} "
+          f"world of {dist.get_world_size()}; serve CLI {arch}"
+          f"{'' if full else ' (smoke)'} 8 steps x batch 4: seqs equal "
+          f"with the mesh active and inactive")
+
+    losses = {}
+    finals = {}
+
+    class Recording(train_cli.TrainSupervisor):
+        def run(self, *a, on_metrics, **k):
+            def both(step, m):
+                losses[name].append(m["loss"])
+                on_metrics(step, m)
+            return super().run(*a, on_metrics=both, **k)
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    saved = (train_cli.TrainSupervisor, train_cli.use_mesh_rules)
+    try:
+        for name, ctx in (("mesh", saved[1]), ("none", no_mesh)):
+            losses[name] = []
+            train_cli.TrainSupervisor, train_cli.use_mesh_rules = \
+                Recording, ctx
+            with contextlib.redirect_stdout(io.StringIO()):
+                finals[name] = train_cli.main([
+                    "--arch", arch, "--device", dev.type, "--steps", "3",
+                    "--batch", "2", "--seq", "128", "--ckpt-every", "1000",
+                    "--ckpt-dir", f"{root}/{name}", *smoke])
+    finally:
+        train_cli.TrainSupervisor, train_cli.use_mesh_rules = saved
+        shutil.rmtree(root, ignore_errors=True)
+    same = all(torch.equal(a, b) for a, b in zip(_lm_leaves(finals["mesh"]),
+                                                 _lm_leaves(finals["none"])))
+    if losses["mesh"] != losses["none"] or len(losses["mesh"]) != 3 \
+            or not same:
+        raise AssertionError(f"[mesh] train CLI: losses {losses}, final "
+                             f"parameters equal: {same}")
+    print(f"[mesh] {smi}: train CLI {arch}{'' if full else ' (smoke)'} "
+          f"3 steps x batch 2 x seq 128: losses {losses['mesh']} and the "
+          f"final parameters bit-equal with the mesh active and inactive")
+    del finals
+
+    # --- 2. the all-to-all MoE on the mesh ---------------------------------
+    cfg = dataclasses.replace(get("olmoe-1b-7b"), param_dtype=torch.float32,
+                              act_dtype=torch.float32)
+    if full:
+        cfg = dataclasses.replace(cfg, **LM_DEPTH["olmoe_1b_7b"])
+    a2a = dataclasses.replace(cfg, moe_a2a=True)
+    params, _ = _lm_model(cfg, dev)
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 128))).to(
+        device=dev, dtype=torch.int32) for k in ("tokens", "labels")}
+    batch["mask"] = torch.ones((2, 128), device=dev)
+    rules = sh.make_rules(a2a, mesh, global_batch=2)
+    exchanges = [0]
+    exchange = compat.all_to_all_single
+
+    def counted(*a, **k):
+        exchanges[0] += 1
+        return exchange(*a, **k)
+
+    out = {}
+    for name, c, ctx in (("moe_apply", cfg, contextlib.nullcontext()),
+                         ("a2a", a2a, use_mesh_rules(mesh, rules))):
+        compat.all_to_all_single = counted
+        exchanges[0] = 0
+        try:
+            with ctx:
+                logits = T.forward_prefill(params, batch, c)
+                (loss, metrics), grads = make_grad_fn(c)(params, batch)
+        finally:
+            compat.all_to_all_single = exchange
+        out[name] = (logits, metrics["aux"], grads, exchanges[0])
+    (l0, x0, g0, n0), (l1, x1, g1, n1) = out["moe_apply"], out["a2a"]
+    if n0 != 0 or n1 < 4 * cfg.n_layers:
+        raise AssertionError(f"[mesh] all-to-alls: {n0} without the mesh, "
+                             f"{n1} with it")
+    err, scale = _lm_err(l1, l0.cpu(), LM_F32, 1.0, "[mesh] a2a logits")
+    aux_err = abs(float(x1) - float(x0))
+    if aux_err > 1e-6:
+        raise AssertionError(f"[mesh] a2a aux {float(x1)} vs {float(x0)}")
+    worst = _train_grads_close(g1, [g.cpu() for g in _lm_leaves(g0)],
+                               "[mesh] a2a gradients")
+    gerr = max(float((a - b).abs().max()) for a, b in
+               zip(_lm_leaves(g1), _lm_leaves(g0)))
+    print(f"[mesh] {smi}: olmoe-1b-7b width{'' if full else ' (smoke)'}, "
+          f"{cfg.n_layers} layers, float32, batch 2 x seq 128, moe_a2a on "
+          f"the mesh ({n1} all-to-alls over {backend} in a prefill and a "
+          f"train step) against moe_apply without it: logits max|delta| "
+          f"{err:.3g} (bound {LM_F32} * {max(1.0, scale):.3g}), aux "
+          f"{float(x1):.9g} / {float(x0):.9g}, gradients max|delta| "
+          f"{gerr:.3g} ({worst:.3f} of [train]'s per-leaf bound); phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    del params, out, grads
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
 def _lm_paths(tree, path=()):
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _lm_paths(tree[k],
@@ -3137,6 +3478,7 @@ def main() -> int:
     from repro_torch.kernels import ops
 
     dev = torch.device("cuda", 0)
+    t_call = time.perf_counter()
     smi = nvidia_smi()
     print(f"[env] {smi} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}")
@@ -3154,6 +3496,11 @@ def main() -> int:
 
     # --- 1c. the LM scaffold's training path (no kernel of the port) ----
     train_phase(smi)
+
+    # --- 1d-1e. the LM examples; the CLIs and the all-to-all MoE on the
+    # local mesh (no kernel of the port) ---------------------------------
+    lm_examples_phase(smi)
+    mesh_phase(smi)
 
     # --- 2. K1 against its plain version -------------------------------
     rng = np.random.default_rng(0)
@@ -3531,6 +3878,7 @@ def main() -> int:
             "max_abs_err": max(
                 k47_err, k57_err if src == "tos_count" else k46_err),
             **tos_t[mode]})
+    print(f"[env] whole call {time.perf_counter() - t_call:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

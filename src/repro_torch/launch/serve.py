@@ -8,9 +8,11 @@ printed lines, on one card (``--device cuda``, the default; ``--device
 cpu`` runs on the host): random weights from seed 0, start tokens from
 ``numpy.random.default_rng(0)``, then ``--steps`` serve steps, each with
 its own split of the threefry key ``PRNGKey(1)`` (used when
-``--temperature`` > 0).  ``main(argv)`` returns the decoded ``seqs``
-(batch, steps + 1).  The reference's mesh and sharding rules are left out:
-the port serves on one card.
+``--temperature`` > 0).  As in the reference, the steps run under the
+local mesh (``make_local_mesh(data=world size)``: 1x1 on one card) and
+its sharding rules; the parameters stay plain tensors, so the rules place
+nothing and the results equal those of a run without a mesh.
+``main(argv)`` returns the decoded ``seqs`` (batch, steps + 1).
 """
 from __future__ import annotations
 
@@ -24,6 +26,9 @@ import torch
 from repro_torch import configs
 from repro_torch.core import prng
 from repro_torch.core.state import resolve_device
+from repro_torch.launch import sharding as sh
+from repro_torch.launch.mesh import make_local_mesh, world_size
+from repro_torch.meshctx import use_mesh_rules
 from repro_torch.models import transformer as T
 from repro_torch.train.train_step import make_serve_step
 
@@ -46,6 +51,8 @@ def main(argv=None):
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get(args.arch)
     if args.kv_quant:
         cfg = dataclasses.replace(cfg, kv_quant=True)
+    mesh = make_local_mesh(data=world_size(), device=dev)
+    rules = sh.make_rules(cfg, mesh, global_batch=args.batch)
 
     params, _ = T.init_params(cfg, torch.Generator(dev).manual_seed(0))
     cache = T.zeros_cache(cfg, args.batch, args.cache_len, dev)
@@ -59,13 +66,14 @@ def main(argv=None):
     out = [toks[:, 0]]
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    t0 = time.perf_counter()
-    for pos in range(args.steps):
-        key, sub = prng.split(key)
-        toks, logits, cache = step(params, toks, cache, pos, sub)
-        out.append(toks[:, 0])
-    seqs = torch.stack(out, 1).cpu().numpy()     # waits for the last step
-    dt = time.perf_counter() - t0
+    with use_mesh_rules(mesh, rules):
+        t0 = time.perf_counter()
+        for pos in range(args.steps):
+            key, sub = prng.split(key)
+            toks, logits, cache = step(params, toks, cache, pos, sub)
+            out.append(toks[:, 0])
+        seqs = torch.stack(out, 1).cpu().numpy()   # waits for the last step
+        dt = time.perf_counter() - t0
 
     print(f"decoded {args.steps} steps x batch {args.batch} in {dt:.2f}s "
           f"({args.steps * args.batch / dt:.1f} tok/s)")

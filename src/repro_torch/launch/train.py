@@ -10,8 +10,10 @@ from seed 0, AdamW, deterministic synthetic LM data, async checkpoints
 and crash-consistent resume, straggler monitoring
 (``repro_torch.train.fault_tolerance.TrainSupervisor``).  A directory
 whose ``LATEST`` is already at ``--steps`` resumes there and takes no
-step.  The reference's mesh and sharding rules are left out: the port
-trains on one card.
+step.  As in the reference, every step runs under the local mesh
+(``make_local_mesh(data=world size)``: 1x1 on one card) and its sharding
+rules; the parameters stay plain tensors, so the rules place nothing and
+the results equal those of a run without a mesh.
 """
 from __future__ import annotations
 
@@ -22,6 +24,9 @@ import torch
 
 from repro_torch import configs
 from repro_torch.core.state import resolve_device
+from repro_torch.launch import sharding as sh
+from repro_torch.launch.mesh import make_local_mesh, world_size
+from repro_torch.meshctx import use_mesh_rules
 from repro_torch.models import transformer as T
 from repro_torch.train.fault_tolerance import TrainSupervisor
 from repro_torch.train.optimizer import AdamWConfig, adamw_init
@@ -84,6 +89,9 @@ def main(argv=None):
     if cfg.family == "encdec":
         args.seq = min(args.seq, cfg.max_target_len)
 
+    mesh = make_local_mesh(data=world_size(), device=dev)
+    rules = sh.make_rules(cfg, mesh, global_batch=args.batch)
+
     params, _ = T.init_params(cfg, torch.Generator(dev).manual_seed(0))
     opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=min(20, args.steps // 10 + 1),
                           total_steps=args.steps)
@@ -91,6 +99,10 @@ def main(argv=None):
 
     step_fn = make_train_step(cfg, opt_cfg, microbatches=args.microbatches,
                               compress_grads=args.compress_grads)
+
+    def mesh_step(params, opt_state, batch):
+        with use_mesh_rules(mesh, rules):
+            return step_fn(params, opt_state, batch)
 
     losses = []
 
@@ -103,7 +115,7 @@ def main(argv=None):
 
     sup = TrainSupervisor(args.ckpt_dir, ckpt_every=args.ckpt_every)
     params, opt_state = sup.run(
-        step_fn, params, opt_state,
+        mesh_step, params, opt_state,
         synthetic_batch_fn(cfg, args.batch, args.seq, device=dev),
         args.steps, on_metrics=on_metrics,
     )

@@ -20,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.meshctx import shard_act
 from repro_torch.models.common import (ModelConfig, ParamSpec, apply_rope,
                                        make_rope, rms_norm)
 
@@ -177,8 +178,11 @@ def gqa_train(p, x, cos, sin, cfg: ModelConfig, *, return_kv: bool = False):
     q, k, v = _qkv(p, x, cfg)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
+    q = shard_act(q, "batch", "seq", "heads", None)
+    k = shard_act(k, "batch", "seq", "kv_heads", None)
     out = _self_attend(q, k, v, cfg)
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    out = shard_act(out, "batch", "seq", "act_embed")
     if return_kv:
         return out, (k, v)      # RoPE'd K — exactly what the decode cache holds
     return out
@@ -320,11 +324,14 @@ def mla_train(p, x, cos, sin, cfg: ModelConfig, *, return_kv: bool = False):
     qf = torch.cat([q_nope, q_rope], -1)
     kf = torch.cat(
         [k_nope, k_rope[:, :, None, :].expand(b, s, h, cfg.qk_rope_dim)], -1)
+    qf = shard_act(qf, "batch", "seq", "heads", None)
+    kf = shard_act(kf, "batch", "seq", "heads", None)
 
     # MLA is full MHA over (dn+dr)-dim keys and dv-dim values; reuse the
     # blockwise path (kheads == n_heads, distinct v dim).
     out = _self_attend(qf, kf, v, cfg)
     out = torch.einsum("bqhv,hvd->bqd", out, p["wo"])
+    out = shard_act(out, "batch", "seq", "act_embed")
     if return_kv:
         return out, latent_cache   # compressed (ckv, k_rope) decode cache
     return out

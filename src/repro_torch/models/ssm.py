@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.meshctx import shard_act
 from repro_torch.models.common import ModelConfig, ParamSpec, rms_norm
 
 __all__ = ["ssm_spec", "ssm_train", "ssm_decode", "ssm_state_spec"]
@@ -142,7 +143,8 @@ def ssm_train(p, x, cfg: ModelConfig) -> torch.Tensor:
 
     # gated RMSNorm + out projection
     y = rms_norm(y * F.silu(z.float()).to(x.dtype), p["norm"], cfg.norm_eps)
-    return torch.einsum("bli,id->bld", y, p["out_proj"])
+    out = torch.einsum("bli,id->bld", y, p["out_proj"])
+    return shard_act(out, "batch", "seq", "act_embed")
 
 
 def ssm_state_spec(cfg: ModelConfig, batch: int) -> dict:

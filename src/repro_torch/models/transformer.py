@@ -15,17 +15,20 @@ Public surface:
 
 Per-layer parameters are stacked on axis 0 ('layers'), as in the
 reference; its ``lax.scan`` over that axis is a Python loop here, its
-``lax.cond`` an ``if``.  The reference's ``shard_act`` constraints are the
-identity on one card and are dropped.  ``forward_decode`` is functional:
-the caller's cache is left untouched.
+``lax.cond`` an ``if``.  The reference's ``shard_act`` sites are kept
+(``repro_torch.meshctx``): the identity without a mesh or on plain
+tensors.  ``forward_decode`` is functional: the caller's cache is left
+untouched.
 
 Training differentiates ``forward_train`` with autograd.  The per-layer
 bodies it runs (the decoder stack's, Whisper's encoder and decoder) go
 through ``_remat``, the reference's ``jax.checkpoint`` policy set by
-``cfg.remat``; decode does not.
+``cfg.remat``; decode does not.  A recomputed body runs under the mesh and
+rules that were active when it first ran.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Any
 
@@ -33,6 +36,8 @@ import torch
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.core.state import resolve_device
+from repro_torch.meshctx import (current_mesh, current_rules, shard_act,
+                                 use_mesh_rules)
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import ssm as ssm_mod
@@ -184,7 +189,9 @@ def _remat(fn, cfg: ModelConfig):
     backward, ``"full"`` saves only ``fn``'s inputs and recomputes its body
     in the backward, and any other value (``"dots"``) saves only the
     unbatched matrix products (``_save_dots``).  Recomputation gives the
-    same values, so the gradients do not depend on the setting."""
+    same values, so the gradients do not depend on the setting.  The
+    recomputation may run on another thread (the backward's device
+    thread), so it re-enters the mesh and rules of the first run."""
     if cfg.remat == "none":
         return fn
     kw = {} if cfg.remat == "full" else {"context_fn": functools.partial(
@@ -195,7 +202,14 @@ def _remat(fn, cfg: ModelConfig):
                 isinstance(t, torch.Tensor) and t.requires_grad
                 for a in args for _, t in _leaves(a))):
             return fn(*args)       # inference: nothing to save or recompute
-        return ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+        mesh, rules = current_mesh(), current_rules()
+
+        def under_mesh(*a):
+            with (use_mesh_rules(mesh, rules) if mesh is not None
+                  else contextlib.nullcontext()):
+                return fn(*a)
+
+        return ckpt.checkpoint(under_mesh, *args, use_reentrant=False, **kw)
 
     return wrapped
 
@@ -212,12 +226,8 @@ def _dense_block(p, x, cos, sin, cfg: ModelConfig):
     x = x + h
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
     if "moe" in p:
-        if cfg.moe_a2a:
-            raise NotImplementedError(
-                "moe_a2a=True (the all-to-all expert dispatch over a device "
-                "mesh) is not ported yet: it comes with the mesh tools "
-                "(M11c)")
-        h, aux = mlp_mod.moe_apply(
+        moe_fn = mlp_mod.moe_apply_a2a if cfg.moe_a2a else mlp_mod.moe_apply
+        h, aux = moe_fn(
             p["moe"], h, cfg, score_fn="sigmoid" if cfg.mla else "softmax")
     else:
         h, aux = mlp_mod.mlp_apply(p["mlp"], h), 0.0
@@ -244,14 +254,15 @@ def _decoder_stack(params, x, cos, sin, cfg: ModelConfig):
 
     def body(lp, h, idx):
         if cfg.family == "ssm":
-            return _ssm_block(lp, h, cfg)
-        if cfg.family == "hybrid":
+            h, a = _ssm_block(lp, h, cfg)
+        elif cfg.family == "hybrid":
             h, a = _ssm_block(lp, h, cfg)
             period = cfg.shared_attn_every
             if period and idx % period == period - 1:
                 h = _shared_block_apply(shared, h, x0, cos, sin, cfg)
-            return h, a
-        return _dense_block(lp, h, cos, sin, cfg)
+        else:
+            h, a = _dense_block(lp, h, cos, sin, cfg)
+        return shard_act(h, "batch", "seq", "act_embed"), a
 
     body = _remat(body, cfg)
     h, aux = x, 0.0
@@ -285,6 +296,7 @@ def _chunked_ce(params, h, labels, mask, cfg: ModelConfig):
     for i in range(s // c):
         sl = slice(i * c, (i + 1) * c)
         logits = _lm_head(params, h[:, sl], cfg).float()
+        logits = shard_act(logits, "batch", "seq", "vocab")
         lse = torch.logsumexp(logits, -1)
         gold = torch.gather(logits, -1, labels[:, sl, None].long())[..., 0]
         mm = mask[:, sl].float()
@@ -306,7 +318,7 @@ def _decoder_input(params, batch, cfg: ModelConfig):
     if cfg.family == "vlm":
         img = batch["img_embeds"].to(cfg.act_dtype)
         x = torch.cat([img, x[:, : s - cfg.n_img_tokens]], 1)
-    return x
+    return shard_act(x, "batch", "seq", "act_embed")
 
 
 def forward_train(params, batch, cfg: ModelConfig):
@@ -406,7 +418,8 @@ def forward_prefill(params, batch, cfg: ModelConfig):
     cos, sin = _rope_tables(x, cfg)
     h, _ = _decoder_stack(params, x, cos, sin, cfg)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    return _lm_head(params, h[:, -1:, :], cfg)
+    return shard_act(_lm_head(params, h[:, -1:, :], cfg), "batch", None,
+                     "vocab")
 
 
 # ---------------------------------------------------------------------------
@@ -433,7 +446,7 @@ def _encode(params, frames, cfg: ModelConfig):
     t = frames.shape[1]
     pos_enc = torch.from_numpy(sinusoidal_positions(t, cfg.d_model)).to(
         device=frames.device, dtype=cfg.act_dtype)
-    h = frames + pos_enc[None]
+    h = shard_act(frames + pos_enc[None], "batch", "seq", "act_embed")
     zero = torch.zeros((1, 1, t, t), dtype=torch.float32, device=h.device)
 
     def body(lp, h):
@@ -527,7 +540,7 @@ def forward_decode(params, tokens, cache, pos, cfg: ModelConfig):
     """One decode step. tokens: (B, 1); pos: int.  Returns
     (logits (B, 1, V), new_cache); ``cache`` is left untouched."""
     pos = int(pos)
-    x = _embed(params, tokens, cfg)
+    x = shard_act(_embed(params, tokens, cfg), "batch", None, "act_embed")
 
     if cfg.family == "ssm":
         h, states = x, []
@@ -562,7 +575,8 @@ def forward_decode(params, tokens, cache, pos, cfg: ModelConfig):
         new_cache = {"kv": _stack_trees(kvs)}
 
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    return _lm_head(params, h, cfg), new_cache
+    logits = shard_act(_lm_head(params, h, cfg), "batch", None, "vocab")
+    return logits, new_cache
 
 
 def _hybrid_decode(params, x, cache, pos: int, cfg: ModelConfig):

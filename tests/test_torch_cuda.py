@@ -782,3 +782,43 @@ def test_lm_train_step_on_cuda_equals_cpu(cuda, arch):
         far += int((d > 1e-5).sum())
         total += d.numel()
     assert far <= 1e-3 * total
+
+
+def test_moe_a2a_on_a_one_card_nccl_mesh_equals_moe_apply(cuda):
+    """The all-to-all MoE on the 1x1 mesh of one card (NCCL): olmoe smoke
+    in float32, x (2, 32, d), equal to ``moe_apply`` on the card (values
+    exactly, aux within 1e-6, the gradients of ``sum(y**2) + aux`` within
+    1e-6), as on the host (``tests/test_torch_mesh.py``)."""
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.meshctx import use_mesh_rules
+    from repro_torch.models import mlp as TM
+    from repro_torch.models.common import init_dense
+    cfg = dataclasses.replace(configs.get_smoke("olmoe_1b_7b"),
+                              param_dtype=torch.float32,
+                              act_dtype=torch.float32)
+    p, _ = init_dense(torch.Generator(cuda).manual_seed(0),
+                      TM.moe_spec(cfg), torch.float32)
+    x = torch.randn((2, 32, cfg.d_model), device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(1))
+    mesh = make_local_mesh(device=cuda)
+    assert mesh.device_type == "cuda" and "nccl" in str(dist.get_backend())
+    rules = sh.make_rules(cfg, mesh)
+    runs = []
+    for use in (False, True):
+        pp = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+        xx = x.clone().requires_grad_(True)
+        if use:
+            with use_mesh_rules(mesh, rules):
+                y, aux = TM.moe_apply_a2a(pp, xx, cfg)
+        else:
+            y, aux = TM.moe_apply(pp, xx, cfg)
+        (y.square().sum() + aux).backward()
+        runs.append((y.detach(), float(aux),
+                     [pp[k].grad for k in sorted(pp)] + [xx.grad]))
+    (y0, a0, g0), (y1, a1, g1) = runs
+    assert torch.equal(y0, y1) and abs(a0 - a1) < 1e-6
+    for a, b in zip(g0, g1):
+        assert float((a - b).abs().max()) <= 1e-6

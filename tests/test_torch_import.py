@@ -55,7 +55,8 @@ def test_port_has_the_slice_modules():
                  "models.ssm", "models.transformer", "train.train_step",
                  "launch.serve", "train.optimizer", "train.compression",
                  "train.checkpoint", "train.fault_tolerance",
-                 "launch.train"):
+                 "launch.train", "compat", "meshctx", "launch.mesh",
+                 "examples.serve_lm", "examples.train_lm"):
         assert "repro_torch." + name in MODULES
     for src in ("fused_step", "harris", "compact", "tos_update", "tos_count"):
         assert (PORT / "csrc" / f"{src}.cu").is_file()
