@@ -198,6 +198,15 @@ checkout of this repository.  Phases, each printing its own lines:
      ``TosStream.update`` through K4-K7 equal to the plain closed form;
      ``stcf_sequential`` equal to ``stcf_chunked`` and to the CPU; the BER
      draws at 0.6-0.62 V and ``corner_lut`` as on the CPU;
+  6m. the lane mesh (M11c-1b), lines ``[lanes]``: the DAVIS240 x16 pool
+     (100 ms feeds, async compact, two runs of each layout in turns, then
+     sync dense once) with ``shard=False``, with ``shard=True`` (a 1-wide
+     lane mesh) and on a mesh that repeats the card twice, every layout's
+     kept, scores and ``pool_stats()`` equal to the unsharded pool's
+     (``sharded`` / ``devices`` apart); K1-K3 launches and host ms per
+     pump round of each, one K3 push per round and shard; ``shard="auto"``
+     over every card where there is more than one, else a line that says
+     it is unchecked;
   7. per-kernel times beside the plain versions' times and a bound from
      bytes and operations (K3's ring push also by host time per push over
      back-to-back pushes ending in a synchronise): CUDA events over
@@ -219,6 +228,7 @@ The last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -1651,6 +1661,141 @@ def close(got, want):
     if err > bound:
         raise AssertionError(f"max |delta| {err:.3g} > bound {bound:.3g}")
     return err
+
+
+# --- 6m: the lane mesh (M11c-1b) -------------------------------------------
+
+LANE_SKIP = {"sharded", "devices"}
+# The tallies a padding lane widens (every upload and ring slot is
+# ``phys`` lanes wide).
+LANE_PADDING = {"h2d_event_slots", "h2d_padding_bytes", "d2h_bytes",
+                "d2h_bytes_saved"}
+
+
+def _same_pool_stats(got, want, skip, what):
+    """``pool_stats()`` equal apart from wall clocks and ``skip`` (also
+    inside each bucket)."""
+    from repro_torch.obs.schema import WALL_TIME_KEYS
+    drop = WALL_TIME_KEYS | set(skip)
+
+    def norm(d):
+        return {k: (norm(v) if isinstance(v, dict) else v)
+                for k, v in d.items() if k not in drop}
+    g, w = norm(got), norm(want)
+    if g != w:
+        diff = sorted(k for k in w if g.get(k) != w[k])
+        raise AssertionError(f"{what}: pool_stats differ in {diff}")
+
+
+def lanes_phase(smi, *, device="cuda", lanes=16, dav_us=100_000, reps=2):
+    """Phase 6m, lines ``[lanes]``: the DAVIS240 x``lanes`` pool (async
+    compact, timed in turns ``reps`` times; sync dense once) with
+    ``shard=False``, with ``shard=True`` (a 1-wide lane mesh on one card)
+    and on a mesh that repeats the first device twice (the split, the
+    per-shard launches and the gather, on one card), every layout's kept,
+    scores and ``pool_stats()`` equal to the unsharded pool's apart from
+    ``sharded`` / ``devices``; launches and host ms per pump round of each;
+    ``shard="auto"`` over every card where there is more than one.
+    Returns the launches of its runs.  ``device="cpu"`` with small sizes
+    rehearses it (a mesh of the CPU twice, no launch counts)."""
+    from unittest import mock
+    import torch
+    from repro_torch.events import synthetic
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding
+
+    t_phase = time.perf_counter()
+    streams = [synthetic.shapes_stream(duration_us=dav_us, seed=s)
+               for s in range(lanes)]
+    cfg = davis_pool_cfg(device)
+    seeds = list(range(lanes))
+    dev0 = torch.device(device, 0) if device != "cpu" else torch.device(
+        "cpu")
+    layouts = {"unsharded": (dict(shard=False), None),
+               "1-wide": (dict(shard=True), sharding.LaneMesh((dev0,))),
+               "2 shards on one card": (dict(shard=True), sharding.LaneMesh(
+                   (dev0, dev0)))}
+    pool_kw = dict(ring_rounds=8, pipeline_depth=2)
+    total = {k: 0 for k in ops.LAUNCHES}
+
+    def run(name, slab=16384, **kw):
+        extra, mesh = layouts[name]
+        patch = (mock.patch.object(sharding, "local_lane_mesh",
+                                   lambda *a, **k: mesh)
+                 if mesh is not None else contextlib.nullcontext())
+        ops.reset_launch_counts()
+        with patch:
+            got = serve_pool(cfg, streams, seeds, slab=slab, **extra, **kw,
+                             **pool_kw)
+        counts = dict(ops.LAUNCHES)
+        for k in total:
+            total[k] += counts[k]
+        return got, counts
+
+    # warm-up: the 2-shard layout's first launches
+    run("2 shards on one card", slab=2048, max_events=4096,
+        drain_mode="async", readout="compact")
+    timed = {name: [] for name in layouts}
+    for _ in range(reps):
+        for name in layouts:
+            timed[name].append(run(name, drain_mode="async",
+                                   readout="compact"))
+    want = timed["unsharded"][0][0]
+    for name, runs in timed.items():
+        for r, ((res, wall, served, st), counts) in enumerate(runs):
+            same_results(res, want[0], f"[lanes] {name} run {r}")
+            _same_pool_stats(st, want[3], LANE_SKIP, f"[lanes] {name}")
+        st, counts = runs[0][0][3], runs[0][1]
+        n_shards = 1 if layouts[name][1] is None else len(
+            layouts[name][1].devices)
+        if (st["sharded"], st["devices"]) != (name != "unsharded",
+                                              n_shards):
+            raise AssertionError(f"[lanes] {name}: sharded "
+                                 f"{st['sharded']} devices {st['devices']}")
+        rounds = st["rounds_executed"]
+        if device != "cpu":
+            if min(counts[k] for k in ("fused_step", "harris",
+                                       "compact")) <= 0:
+                raise AssertionError(f"[lanes] {name}: a kernel was not "
+                                     f"launched: {counts}")
+            if counts["compact"] != n_shards * rounds:
+                raise AssertionError(
+                    f"[lanes] {name}: {counts['compact']} K3 pushes for "
+                    f"{rounds} rounds on {n_shards} shard(s)")
+        walls = sorted(g[0][1] for g in runs)
+        per = ", ".join(f"{k} {counts[k] / rounds:.3f}"
+                        for k in ("fused_step", "harris", "compact"))
+        print(f"[lanes] {smi}: DAVIS240 x{lanes} async compact, {name}: "
+              f"{runs[0][0][2]} events, {rounds} pump rounds; launches per "
+              f"round {per}; host ms per round "
+              f"{', '.join(f'{w / rounds * 1e3:.4f}' for w in walls)} over "
+              f"{len(walls)} runs in turns; kept, scores and pool_stats "
+              f"equal to the unsharded pool's")
+    sync = {name: run(name, drain_mode="sync", readout="dense")[0]
+            for name in layouts}
+    for name, got in sync.items():
+        same_results(got[0], want[0], f"[lanes] sync dense {name}")
+        _same_pool_stats(got[3], sync["unsharded"][3], LANE_SKIP,
+                         f"[lanes] sync dense {name}")
+    print(f"[lanes] sync dense: {', '.join(sync)} equal to the async "
+          f"compact runs and to each other")
+    n_dev = torch.cuda.device_count() if device != "cpu" else 1
+    if n_dev > 1:
+        ops.reset_launch_counts()
+        got = serve_pool(cfg, streams, seeds, slab=16384, shard="auto",
+                         drain_mode="async", readout="compact", **pool_kw)
+        for k in total:
+            total[k] += ops.LAUNCHES[k]
+        same_results(got[0], want[0], f"[lanes] auto over {n_dev} cards")
+        _same_pool_stats(got[3], want[3], LANE_SKIP | LANE_PADDING,
+                         f"[lanes] auto over {n_dev} cards")
+        print(f"[lanes] shard='auto' over {got[3]['devices']} cards: kept "
+              f"and scores equal to the unsharded pool's")
+    else:
+        print(f"[lanes] {n_dev} card: shard='auto' over several cards is "
+              f"left unchecked")
+    print(f"[lanes] phase took {time.perf_counter() - t_phase:.1f} s")
+    return total
 
 
 # --- 6d-6f: the user-facing entry points (the serving CLI, the fleet
@@ -3658,6 +3803,9 @@ def main() -> int:
         smi, device="cuda",
         nmc_auc=e2e_res["shapes_dof"]["auc_errorfree"])
 
+    # --- 6m. the lane mesh: shard=True on the card ----------------------
+    lanes_launches = lanes_phase(smi)
+
     # --- 7. times at the main path's shapes ----------------------------
     # K1 as the main path calls it: in place on a state it owns, each call
     # on a fresh copy of the same state (made before the timed window), HD
@@ -3831,7 +3979,8 @@ def main() -> int:
 
     entry_points = (cli_launches, quick_launches, scenario_launches,
                     bench_launches, loader_launches, e2e_launches,
-                    paper_launches, cost_launches, m10_launches)
+                    paper_launches, cost_launches, m10_launches,
+                    lanes_launches)
     launches = {k: batch_launches[k] + serve_launches[k]
                 + adaptive_launches[k] + ladder_launches[k]
                 + sum(d[k] for d in entry_points)

@@ -24,8 +24,9 @@ size K:
     ring.
   * ``poolK_d2h_bytes_per_fetch_{dense,compact}`` / ``poolK_d2h_bytes_ratio``
     — result bytes per fetch on a sparse-corner fleet under each readout.
-  * ``poolK_sharded_events_per_s_skipped`` — always skipped: the port
-    serves a pool on one card (``shard=True`` raises).
+  * ``poolK_sharded_events_per_s`` — the ring path with ``shard=True``,
+    its lanes sharded over every local device of ``device``'s type;
+    recorded ``_skipped`` (derived 0) where there is only one.
   * ``poolK_migration_{count,padding_saved_ratio,padding_saved_mb,
     rounds_per_fetch}`` — the adaptive policy against the static one
     under a rate ramp from the small bucket.
@@ -56,6 +57,7 @@ import torch
 
 from repro_torch.core import pipeline
 from repro_torch.events import synthetic
+from repro_torch.launch.sharding import local_lane_mesh
 from repro_torch.serve import DetectorPool
 from repro_torch.serve.scheduler import LadderConfig
 from repro_torch.serve.streaming import StreamingDetector
@@ -76,10 +78,11 @@ def _mk_streams(k: int, duration_us: int):
     ]
 
 
-def _run_pool(cfg, streams, *, ring_rounds: int, drain_mode: str = "sync"):
+def _run_pool(cfg, streams, *, ring_rounds: int, drain_mode: str = "sync",
+              shard="auto"):
     k = len(streams)
     pool = DetectorPool(cfg, capacity=k, ring_rounds=ring_rounds,
-                        drain_mode=drain_mode)
+                        drain_mode=drain_mode, shard=shard)
     # run both executor shapes outside the timed region
     pool.warmup(streams[0].xy, streams[0].ts)
 
@@ -376,6 +379,7 @@ def rows(smoke: bool = False, *, device: str = "cuda"):
     duration = 6_000 if smoke else DURATION_US
     cfg = pipeline.PipelineConfig(chunk=256, lut_every_chunks=2,
                                   device=device)
+    single_device = local_lane_mesh(device=device).shape["lanes"] == 1
     for k in pool_sizes:
         streams = _mk_streams(k, duration)
 
@@ -449,10 +453,16 @@ def rows(smoke: bool = False, *, device: str = "cuda"):
         out.append((f"pool{k}_d2h_bytes_ratio", 0.0,
                     per_fetch["compact"] / max(per_fetch["dense"], 1.0)))
 
-        # lane-sharded pool: the port's pool serves one card whatever
-        # torch.cuda.device_count() says (shard=True raises), so the row
-        # is recorded, not measured
-        out.append((f"pool{k}_sharded_events_per_s_skipped", 0.0, 0.0))
+        # lane-sharded pool: needs more than one local device of the
+        # run's type; recorded, not measured, where there is one
+        if single_device:
+            out.append((f"pool{k}_sharded_events_per_s_skipped", 0.0, 0.0))
+        else:
+            sdt, _, _, _ = _run_pool(cfg, streams, ring_rounds=RING_ROUNDS,
+                                     shard=True)
+            n_total = sum(len(s) for s in streams)
+            out.append((f"pool{k}_sharded_events_per_s",
+                        sdt * 1e6 / max(n_total, 1), n_total / sdt))
 
         # adaptive control plane under a rate-ramp: padding saved + moves
         ramp_rates = ([100] * 3 + [512] * 9) if smoke \

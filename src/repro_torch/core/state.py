@@ -584,12 +584,28 @@ def state_from_numpy(jstate, *, device="cuda") -> DetectorState:
     )
 
 
-def state_to_numpy(state: DetectorState) -> DetectorState:
+def state_to_numpy(state) -> DetectorState:
     """The state as owned numpy arrays in the reference's layout and
     dtypes: a one-lane state drops the lane axis (host leaves become 0-d),
-    a B-lane state is the reference pool's stacked ``(B, ...)`` layout."""
+    a B-lane state is the reference pool's stacked ``(B, ...)`` layout.  A
+    sharded pool's state, the tuple of its shards' states in lane order,
+    gives the same tree as the unsharded pool's: every lane, in global
+    order."""
+    if not isinstance(state, DetectorState):
+        parts = [_host_state(s, single=False) for s in state]
+        return _cat_lanes(parts)
+    return _host_state(state, single=state.surface.shape[0] == 1)
+
+
+def _cat_lanes(parts):
+    """Equal-structured host trees joined along their lane axis."""
+    if isinstance(parts[0], tuple):
+        return type(parts[0])(*(_cat_lanes(list(z)) for z in zip(*parts)))
+    return np.concatenate(parts)
+
+
+def _host_state(state: DetectorState, *, single: bool) -> DetectorState:
     b = state.surface.shape[0]
-    single = b == 1
 
     def arr(t, dtype):
         a = t.detach().cpu().numpy().astype(dtype)
@@ -618,10 +634,18 @@ def state_to_numpy(state: DetectorState) -> DetectorState:
     )
 
 
-def lane_state(state: DetectorState, lane: int) -> DetectorState:
+def lane_state(state, lane: int) -> DetectorState:
     """Lane ``lane`` of ``state`` as a one-lane state (tensor leaves are
     views of ``state``'s, so an in-place step of ``state`` shows through
-    them; host leaves are copies)."""
+    them; host leaves are copies).  ``state`` may be a sharded pool's tuple
+    of shard states, ``lane`` then a global lane index."""
+    if not isinstance(state, DetectorState):
+        for shard in state:
+            b = shard.surface.shape[0]
+            if 0 <= lane < b:
+                return lane_state(shard, lane)
+            lane -= b
+        raise IndexError("lane index out of range")
     sl = slice(lane, lane + 1)
     host = {f: _lanes(getattr(state, f), state.surface.shape[0],
                       dt)[sl].copy()

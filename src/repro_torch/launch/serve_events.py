@@ -6,8 +6,9 @@
         --connect-chunk 64
 
 The port of ``repro.launch.serve_events``, with the same flags, loop, log
-lines and report.  It spins up a ``DetectorPool`` on one card (``--device
-cuda``, the default; ``--device cpu`` runs the plain versions), connects
+lines and report.  It spins up a ``DetectorPool`` on the card (``--device
+cuda``, the default; its lanes sharded over every local card where there
+is more than one; ``--device cpu`` runs the plain versions), connects
 ``--sessions`` synthetic cameras with staggered joins, feeds their streams
 in fixed-size slabs round-robin, and reports aggregate throughput,
 per-round latency percentiles, and the ring runtime counters (host fetches

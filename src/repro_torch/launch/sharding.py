@@ -11,7 +11,15 @@ DTensor placements); ``Sharding.place`` distributes a tensor by them.
 The rules read a mesh's axis names and sizes through
 ``repro_torch.meshctx.mesh_axes``, so a ``DeviceMesh`` and a record of
 production sizes (``axis_names``, a ``shape`` dict) give the same rules.
-The lane-mesh helpers of the reference's pool have no counterpart yet.
+
+The serving pool's lane mesh is a 1-D ``('lanes',)`` mesh over the local
+devices.  The pool is one process driving every local card, as the
+reference's pool is, so the mesh is not a ``DeviceMesh`` (one device per
+rank) but a ``LaneMesh`` record of its devices.  Lane ``i`` lives at a fixed
+offset of the lane-stacked state, so membership churn moves nothing, and
+the detector step has no cross-lane term, so the sharded pool needs no
+collectives.  ``lane_put`` splits a lane-stacked tree into one tree per
+shard; its inverse ``_lane_gather`` puts the lanes back in global order.
 
 ``HostStager`` is a ring of ``depth`` pinned (page-locked) host slabs.
 ``put`` packs one block's arrays into the next slab, starts one
@@ -34,7 +42,9 @@ from repro_torch.meshctx import logical_to_spec, mesh_axes, spec_placements
 from repro_torch.models.common import ModelConfig, tree_map
 
 __all__ = ["make_rules", "param_shardings", "batch_shardings",
-           "cache_shardings", "data_axes", "Sharding", "HostStager"]
+           "cache_shardings", "data_axes", "Sharding", "HostStager",
+           "LaneMesh", "local_lane_mesh", "lane_padded_capacity",
+           "lane_spec", "lane_put", "pinned_host_sharding"]
 
 _ALIGN = 16      # bytes; every array starts aligned in the slab
 
@@ -49,6 +59,7 @@ class HostStager:
         if depth < 1:
             raise ValueError("depth must be >= 1")
         self.device = torch.device("cuda" if device is None else device)
+        self._pinned = pinned_host_sharding(self.device) is not None
         self.depth = int(depth)
         self._slabs: list[Optional[torch.Tensor]] = [None] * self.depth
         self._events: list[Optional[torch.cuda.Event]] = [None] * self.depth
@@ -58,7 +69,7 @@ class HostStager:
     @property
     def pinned(self) -> bool:
         """True iff uploads actually stage through pinned host memory."""
-        return self.device.type == "cuda"
+        return self._pinned
 
     def put(self, *arrays: np.ndarray) -> list[torch.Tensor]:
         """The arrays on the device, in one copy from the next slab."""
@@ -90,6 +101,139 @@ class HostStager:
             out.append(dev[off:off + a.nbytes].view(t.dtype)
                        .reshape(a.shape))
         return out
+
+
+# ---------------------------------------------------------------------------
+# The serving pool's lane mesh
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class LaneMesh:
+    """A 1-D ``('lanes',)`` mesh: one shard of lanes per entry of
+    ``devices`` (a device may repeat).  ``axis_names`` and ``shape`` read
+    as the LM meshes' records do (``meshctx.mesh_axes``)."""
+
+    devices: tuple
+
+    @property
+    def axis_names(self) -> tuple:
+        return ("lanes",)
+
+    @property
+    def shape(self) -> dict:
+        return {"lanes": len(self.devices)}
+
+
+def local_lane_mesh(n_devices: Optional[int] = None, *,
+                    device="cuda") -> LaneMesh:
+    """The lane mesh over the local devices of ``device``'s type: every
+    card (or the first ``n_devices``) for ``cuda``, one shard for ``cpu``.
+    Asking for a card where there is none, or for more devices than there
+    are, raises; nothing falls back to the CPU."""
+    kind = torch.device(device).type
+    if kind == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("a lane mesh over CUDA devices asked for but "
+                               "no CUDA device is available")
+        devs = [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    elif kind == "cpu":
+        devs = [torch.device("cpu")]
+    else:
+        raise ValueError(f"no lane mesh over {kind!r} devices")
+    if n_devices is not None:
+        if not 1 <= int(n_devices) <= len(devs):
+            raise ValueError(f"{n_devices} devices asked for, {len(devs)} "
+                             f"local {kind} device(s)")
+        devs = devs[:int(n_devices)]
+    return LaneMesh(tuple(devs))
+
+
+def lane_padded_capacity(capacity: int, mesh) -> int:
+    """Physical lane count: ``capacity`` rounded up so the lane axis splits
+    evenly across the mesh (the padding lanes ride along masked)."""
+    n = mesh.shape["lanes"]
+    return ((int(capacity) + n - 1) // n) * n
+
+
+def lane_spec(lane_axis: int = 0) -> tuple:
+    """The spec placing dimension ``lane_axis`` on the 'lanes' axis, every
+    other dimension replicated (``tuple`` of the reference's
+    ``PartitionSpec``)."""
+    return (None,) * int(lane_axis) + ("lanes",)
+
+
+def _tree_map(fn, *trees):
+    """``fn`` over the leaves of equal-structured trees of named tuples,
+    tuples, lists and dicts (tensors, arrays and scalars are leaves)."""
+    t = trees[0]
+    if isinstance(t, dict):
+        return {k: _tree_map(fn, *(x[k] for x in trees)) for k in t}
+    if isinstance(t, (tuple, list)):
+        parts = [_tree_map(fn, *z) for z in zip(*trees)]
+        return type(t)(*parts) if hasattr(t, "_fields") else type(t)(parts)
+    return fn(*trees)
+
+
+def _ndim(leaf) -> int:
+    return leaf.dim() if isinstance(leaf, torch.Tensor) else np.ndim(leaf)
+
+
+def lane_put(mesh, tree, lane_axis: int = 0) -> tuple:
+    """A lane-stacked tree split into one tree per shard: shard ``j`` owns
+    lanes ``[j*per, (j+1)*per)`` along ``lane_axis``, its tensors copied to
+    ``mesh.devices[j]`` (host arrays stay on the host, copied).  A leaf with
+    ``ndim <= lane_axis`` is copied whole to every shard (the reference's
+    ``P()``)."""
+    n = mesh.shape["lanes"]
+
+    def part(leaf, j, device):
+        if _ndim(leaf) <= lane_axis:
+            sl = ...
+        else:
+            size = leaf.shape[lane_axis]
+            if size % n:
+                raise ValueError(f"{size} lanes do not split over {n} "
+                                 f"shards")
+            per = size // n
+            sl = (slice(None),) * lane_axis + (slice(j * per,
+                                                     (j + 1) * per),)
+        if isinstance(leaf, torch.Tensor):
+            return leaf[sl].to(device, copy=True,
+                               memory_format=torch.contiguous_format)
+        if isinstance(leaf, np.ndarray):
+            return np.array(leaf[sl])
+        return leaf
+
+    return tuple(_tree_map(lambda leaf: part(leaf, j, dev), tree)
+                 for j, dev in enumerate(mesh.devices))
+
+
+def _lane_gather(shards, lane_axis: int = 0):
+    """``lane_put``'s inverse: one tree holding every shard's lanes in
+    global order (tensors on the first shard's device, host arrays on the
+    host); a leaf with ``ndim <= lane_axis`` is the first shard's."""
+    def cat(first, *rest):
+        if _ndim(first) <= lane_axis:
+            return first
+        if isinstance(first, torch.Tensor):
+            return torch.cat([first, *(x.to(first.device) for x in rest)],
+                             lane_axis)
+        return np.concatenate([first, *rest], lane_axis)
+
+    return _tree_map(cat, *shards)
+
+
+def pinned_host_sharding(device) -> Optional[torch.device]:
+    """Where ``HostStager`` pins its slabs for uploads to ``device``: the
+    CUDA device itself (page-locked host memory the CUDA runtime maps for
+    it), or ``None`` for a non-CUDA device or where CUDA is not available
+    (the reference's probe answers ``None`` on the CPU too)."""
+    device = torch.device(device)
+    if device.type != "cuda" or not torch.cuda.is_available():
+        return None
+    return device
 
 
 # ---------------------------------------------------------------------------

@@ -44,7 +44,10 @@ class DetectorPool:
     ``(cap,)`` records on the device (K3), so drains fetch about
     ``chunk/cap`` times fewer bytes; ``compact_cap`` overrides the
     ``chunk // 8`` default, and a slot-lane that overflows it falls back to
-    its dense row.  Results equal ``"dense"``'s.  Runs on ``cfg.device``.
+    its dense row.  Results equal ``"dense"``'s.  Runs on ``cfg.device``;
+    ``shard=True``, or ``"auto"`` where there is more than one local
+    device of that type, shards the lanes over a lane mesh of them (see
+    ``serve.runtime``), with the same results.
 
     ``migrate_patience`` and ``migrate_margin`` tune ``policy="adaptive"``
     (rate windows a move must be wanted for; the headroom a move down

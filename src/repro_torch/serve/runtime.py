@@ -83,7 +83,17 @@ which apply at the next pass.
 reader takes it only to distribute and recycle, never across a transfer.
 A pump token serializes whole pump passes, migrations and knob writes.
 
-The card is one device: there is no lane mesh.
+**Lane sharding.**  ``shard=True``, or ``"auto"`` with more than one local
+device of the pool's type, serves the lanes over a 1-D lane mesh
+(``launch.sharding.local_lane_mesh``); otherwise the pool is one shard on
+its device, so both share every code path.  The capacity is padded to a
+multiple of the mesh width (the padding lanes are never connectable and
+always masked).  Each shard owns a contiguous run of lanes on its device:
+their state, riders, stager and rings (lane axis second).  The executor
+steps and pushes every shard each round, on the shard's device; the step
+has no cross-lane term, so no shard reads another's.  A drain fetches
+each shard and gathers the lanes in global order; per-lane verbs route a
+global lane to its shard and local index.
 """
 from __future__ import annotations
 
@@ -191,26 +201,40 @@ class _Round:
 
 class _StagedBlock:
     """One block whose upload has started but whose rounds have not
-    run: the unit of the pump's stage-ahead deque.  ``xy`` / ``ts`` /
-    ``valid`` / ``mask`` / ``n_valid`` are device tensors with a leading
-    round axis (none when ``single``); ``masks`` are the host lane masks of
-    the ``n`` real rounds."""
+    run: the unit of the pump's stage-ahead deque.  ``parts`` holds, per
+    shard, its ``(xy, ts, valid, mask, n_valid)`` device tensors with a
+    leading round axis (none when ``single``); ``masks`` are the host lane
+    masks of the ``n`` real rounds, over all lanes."""
 
-    __slots__ = ("bucket", "n", "single", "xy", "ts", "valid", "mask",
-                 "n_valid", "masks")
+    __slots__ = ("bucket", "n", "single", "parts", "masks")
 
-    def __init__(self, bucket, n, single, xy, ts, valid, mask, n_valid,
-                 masks):
+    def __init__(self, bucket, n, single, parts, masks):
         self.bucket, self.n, self.single = bucket, n, single
-        self.xy, self.ts, self.valid = xy, ts, valid
-        self.mask, self.n_valid, self.masks = mask, n_valid, masks
+        self.parts, self.masks = parts, masks
 
-    def round(self, i: int):
-        """Round ``i``'s device rows ``(xy, ts, valid, mask, n_valid)``."""
-        if self.single:
-            return self.xy, self.ts, self.valid, self.mask, self.n_valid
-        return (self.xy[i], self.ts[i], self.valid[i], self.mask[i],
-                self.n_valid[i])
+    def round(self, i: int, shard: int):
+        """Round ``i``'s device rows ``(xy, ts, valid, mask, n_valid)`` on
+        shard ``shard``."""
+        part = self.parts[shard]
+        return part if self.single else tuple(t[i] for t in part)
+
+
+class _Shard:
+    """One device's run of lanes ``[lo, hi)``: their lane-stacked state,
+    the step's riders and the stager of their uploads."""
+
+    __slots__ = ("device", "lo", "hi", "state", "riders", "stager")
+
+    def __init__(self, device, lo, hi, state, riders, stager):
+        self.device, self.lo, self.hi = device, lo, hi
+        self.state, self.riders, self.stager = state, riders, stager
+
+
+def _record_event(device: torch.device) -> torch.cuda.Event:
+    """A CUDA event recorded on ``device``'s current stream."""
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(device))
+    return ev
 
 
 class PoolRuntime:
@@ -261,10 +285,6 @@ class PoolRuntime:
             )
         if compact_cap is not None and int(compact_cap) < 1:
             raise ValueError("compact_cap must be >= 1")
-        if shard is True:
-            raise ValueError(
-                "shard=True asks for a lane mesh over several devices; the "
-                "port serves a pool on a single card (shard='auto')")
         if buckets is None:
             buckets = (cfg.chunk,)
         buckets = tuple(sorted({int(b) for b in buckets}))
@@ -296,12 +316,6 @@ class PoolRuntime:
         self._online = bool(cfg.dvfs and cfg.dvfs_online)
         self._tab = dvfs_mod.op_point_table(cfg.dvfs_cfg)
         self._vdd_top = state_mod._vdd_top(cfg)
-        self._phys = capacity
-        vdd = None if self._online else np.full((1,), cfg.vdd, np.float64)
-        self._riders = tuple(
-            state_mod.upload(np.full((self._phys,), r[0], np.float32),
-                             self._device)
-            for r in state_mod.chunk_input_riders(1, vdd, cfg))
         self._tcfg = {b: pipeline_mod._trace_cfg(cfg, chunk=b)
                       for b in buckets}
 
@@ -309,18 +323,48 @@ class PoolRuntime:
         self._cv = threading.Condition(self._lock)
         self._closed = False
 
-        self._states = state_mod.detector_init(
+        # -- lane sharding: a 1-D 'lanes' mesh, or one shard ---------------
+        self._mesh = None
+        if shard is True or shard == "auto":
+            local = sharding_mod.local_lane_mesh(device=self._device.type)
+            if shard is True or local.shape["lanes"] > 1:
+                self._mesh = local
+        if self._mesh is not None:
+            other = {d.type for d in self._mesh.devices} - {
+                self._device.type}
+            if other:
+                raise ValueError(
+                    f"a lane mesh over {sorted(other)} devices cannot serve "
+                    f"a pool on {self._device.type!r}")
+        home = self._device
+        if home.type == "cuda" and home.index is None:
+            home = torch.device("cuda", torch.cuda.current_device())
+        mesh = self._mesh or sharding_mod.LaneMesh((home,))
+        # Physical lane count: padded so the lane axis splits evenly; the
+        # padding lanes are permanently inactive (masked, never connectable).
+        self._phys = sharding_mod.lane_padded_capacity(capacity, mesh)
+        self._per = self._phys // mesh.shape["lanes"]
+        states = sharding_mod.lane_put(mesh, state_mod.detector_init(
             cfg, seed=[seed + i for i in range(self._phys)],
-            device=self._device)
+            device=mesh.devices[0]))
+        vdd = None if self._online else np.full((1,), cfg.vdd, np.float64)
+        riders = state_mod.chunk_input_riders(1, vdd, cfg)
+        self._shards = [
+            _Shard(dev, j * self._per, (j + 1) * self._per, st,
+                   tuple(state_mod.upload(
+                       np.full((self._per,), r[0], np.float32), dev)
+                       for r in riders),
+                   sharding_mod.HostStager(dev, depth=self._pipeline_depth))
+            for j, (dev, st) in enumerate(zip(mesh.devices, states))]
+        # the distinct CUDA devices, for events and copy streams
+        self._cuda_devices = tuple(dict.fromkeys(
+            d for d in mesh.devices if d.type == "cuda"))
         self._active = np.zeros((self._phys,), bool)
         self._lanes: list[Optional[_Lane]] = [None] * self._phys
         self._staged: dict[int, int] = {}     # lane -> target bucket
 
-        self._stager = sharding_mod.HostStager(self._device,
-                                               depth=self._pipeline_depth)
-
         # -- per-bucket runtime: ring-of-rings + executor use --------------
-        self._rings: dict[int, state_mod.RingState] = {}    # live ring
+        self._rings: dict[int, tuple] = {}    # live ring, one per shard
         self._spares: dict[int, collections.deque] = {}
         self._inflight: dict[int, int] = {}       # sealed rings being fetched
         self._executed: dict[int, dict] = {}      # slab signatures run
@@ -338,7 +382,7 @@ class PoolRuntime:
                          else obs_mod.MetricsRegistry(namespace="pool"))
         self._declare_metrics(buckets)
         self._pass_dispatches = 0  # blocks dispatched in the current pass
-        self._busy_probe = None    # CUDA event after the last dispatch
+        self._busy_probe = ()      # CUDA events after the last dispatch
         self._pump_busy = False
 
         self._reader_exc: Optional[BaseException] = None
@@ -444,27 +488,39 @@ class PoolRuntime:
 
     # -- executors and rings --------------------------------------------------
 
-    def _make_ring(self, bucket: int) -> state_mod.RingState:
+    def _make_ring(self, bucket: int) -> tuple:
+        """A bucket's ring: one ring per shard, of the shard's lanes (the
+        lane axis second), on its device."""
         if self._readout == "compact":
-            return state_mod.compact_ring_init(
-                self._ring_rounds, self._phys, bucket,
-                self._compact_caps[bucket], device=self._device)
-        return state_mod.ring_init(self._ring_rounds, self._phys, bucket,
-                                   device=self._device)
-
-    def _push(self, bucket: int, outs, mask, n_valid) -> None:
-        """Push one executed round into the bucket's live ring: one K3
-        ring-push launch on CUDA, which also ranks a compact ring's
-        records."""
-        state_mod.ring_push(self._rings[bucket], outs, mask, n_valid)
+            return tuple(state_mod.compact_ring_init(
+                self._ring_rounds, self._per, bucket,
+                self._compact_caps[bucket], device=sh.device)
+                for sh in self._shards)
+        return tuple(state_mod.ring_init(self._ring_rounds, self._per,
+                                         bucket, device=sh.device)
+                     for sh in self._shards)
 
     @staticmethod
     def _reset_ring(ring: state_mod.RingState) -> state_mod.RingState:
-        """Mark a drained ring empty (count/dropped -> 0) without touching
-        its data buffers."""
+        """Mark a drained ring (one shard's) empty (count/dropped -> 0)
+        without touching its data buffers."""
         ring.count.zero_()
         ring.dropped.zero_()
         return ring
+
+    def _locate(self, lane: int) -> tuple:
+        """The shard holding global lane ``lane``, and its index there."""
+        sh = self._shards[lane // self._per]
+        return sh, lane - sh.lo
+
+    @property
+    def _states(self):
+        """The lane-stacked state: a ``DetectorState`` on one shard, else
+        the tuple of the shards' states in lane order (which
+        ``state.state_to_numpy`` and ``state.lane_state`` read)."""
+        if len(self._shards) == 1:
+            return self._shards[0].state
+        return tuple(sh.state for sh in self._shards)
 
     # -- membership ---------------------------------------------------------
 
@@ -484,11 +540,11 @@ class PoolRuntime:
             if not free.size:
                 raise RuntimeError(f"pool full ({self._capacity} sessions)")
             lane = int(free[0])
+            sh, i = self._locate(lane)
             fresh = state_mod.detector_init(
                 self._cfg, seed=self._seed + lane if seed is None else seed,
-                device=self._device)
-            self._states = state_mod.set_lane_state(self._states, lane,
-                                                    fresh)
+                device=sh.device)
+            sh.state = state_mod.set_lane_state(sh.state, i, fresh)
             self._active[lane] = True
             self._lanes[lane] = _Lane(bucket, qos=str(qos))
             return lane
@@ -594,7 +650,8 @@ class PoolRuntime:
             ln.n_events += int(ts.size)
             ln.rate_update(ts, self._half_us)
             ln.gen += 1
-            if self._states.ctrl.shed[lane]:
+            sh, i = self._locate(lane)
+            if sh.state.ctrl.shed[i]:
                 self._shed_buffer(ln)
 
     def _shed_buffer(self, ln: _Lane) -> None:
@@ -806,9 +863,9 @@ class PoolRuntime:
                    shed: Optional[bool]) -> Optional[tuple]:
         """A knob request clamped against the lane's ``ctrl`` entries (the
         only copy of its knobs); ``None`` when it would change nothing."""
-        c = self._states.ctrl
-        cur = (int(c.lut_every[lane]), int(c.vdd_cap[lane]),
-               bool(c.shed[lane]))
+        sh, i = self._locate(lane)
+        c = sh.state.ctrl
+        cur = (int(c.lut_every[i]), int(c.vdd_cap[i]), bool(c.shed[i]))
         want = (
             cur[0] if lut_every is None else max(1, int(lut_every)),
             cur[1] if vdd_cap is None
@@ -819,19 +876,21 @@ class PoolRuntime:
 
     def _write_knobs_locked(self, writes: list) -> None:
         """Write ``[(lane, (lut_every, vdd_cap, shed)), ...]`` as one
-        replacement of the three ``ctrl`` leaves (caller holds the lock and
-        the pump token); later writes to a lane win.  A pass's writes of
-        more than one lane count as one coalesced write, as the reference's
-        batched update does.  A lane entering ``shed`` drops its oldest
-        buffered events at once."""
-        c = self._states.ctrl
-        shed_now = {lane: bool(c.shed[lane]) for lane, _ in writes}
-        leaves = [leaf.copy() for leaf in c]
+        replacement of the three ``ctrl`` leaves of each shard written
+        (caller holds the lock and the pump token); later writes to a lane
+        win.  A pass's writes of more than one lane count as one coalesced
+        write, as the reference's batched update does.  A lane entering
+        ``shed`` drops its oldest buffered events at once."""
+        shed_now, leaves = {}, {}
         for lane, want in writes:
-            for leaf, value in zip(leaves, want):
-                leaf[lane] = value
-        self._states = self._states._replace(
-            ctrl=state_mod.ControlState(*leaves))
+            sh, i = self._locate(lane)
+            shed_now[lane] = bool(sh.state.ctrl.shed[i])
+            if sh not in leaves:
+                leaves[sh] = [leaf.copy() for leaf in sh.state.ctrl]
+            for leaf, value in zip(leaves[sh], want):
+                leaf[i] = value
+        for sh, new in leaves.items():
+            sh.state = sh.state._replace(ctrl=state_mod.ControlState(*new))
         if len(writes) > 1:
             self._m_ctrl_writes.inc()
             self._m_ctrl_coalesced.inc(len(writes))
@@ -990,8 +1049,9 @@ class PoolRuntime:
         lock is released, so no transfer runs under it)."""
         ln = self._lanes[lane]
         n_scored = max(ln.kept_total, 1)
-        s = self._states
-        dev = tuple(t[lane].clone() for t in (
+        sh, i = self._locate(lane)
+        s = sh.state
+        dev = tuple(t[i].clone() for t in (
             s.kept_total, s.energy_pj, s.latency_ns, s.rate.prev1,
             s.rate.prev2))
         b = ln.bucket
@@ -1022,9 +1082,9 @@ class PoolRuntime:
             "last_drain_wait_s": float(self._m_last_drain_wait[b].value()),
             "qos": ln.qos,
             "ladder_tier": ln.tier,
-            "ctrl_lut_every": int(s.ctrl.lut_every[lane]),
-            "ctrl_vdd_cap": int(s.ctrl.vdd_cap[lane]),
-            "ctrl_shed": bool(s.ctrl.shed[lane]),
+            "ctrl_lut_every": int(s.ctrl.lut_every[i]),
+            "ctrl_vdd_cap": int(s.ctrl.vdd_cap[i]),
+            "ctrl_shed": bool(s.ctrl.shed[i]),
             "shed_events": ln.shed_events,
         }
         return out, dev
@@ -1043,8 +1103,11 @@ class PoolRuntime:
     def pool_stats(self) -> dict:
         """Pool-level runtime counters (no device sync); the same keys as
         the reference's.  ``h2d_event_slots`` / ``h2d_padding_bytes`` count
-        the slabs this pool uploaded, ``d2h_bytes`` the bytes its drains
-        fetched."""
+        the slabs this pool uploaded (``phys`` lanes wide, the padding
+        lanes of a lane mesh included), ``d2h_bytes`` the bytes its drains
+        fetched.  Every shard stages each block's arrays through its own
+        stager, so ``h2d_staged_uploads`` counts a block's arrays once,
+        whatever the mesh width."""
         with self._lock:
             self._check_open()
             exe = self.compile_cache_sizes()
@@ -1059,8 +1122,9 @@ class PoolRuntime:
             return {
                 "capacity": self._capacity,
                 "active": len(self.active_lanes),
-                "sharded": False,
-                "devices": 1,
+                "sharded": self._mesh is not None,
+                "devices": (self._mesh.shape["lanes"]
+                            if self._mesh is not None else 1),
                 "ring_rounds": self._ring_rounds,
                 "ring_depth": self._ring_depth,
                 "pipeline_depth": self._pipeline_depth,
@@ -1089,8 +1153,8 @@ class PoolRuntime:
                 "migrations_staged": len(self._staged),
                 "h2d_event_slots": h2d_slots,
                 "h2d_valid_events": h2d_valid,
-                "h2d_pinned_staging": self._stager.pinned,
-                "h2d_staged_uploads": self._stager.uploads,
+                "h2d_pinned_staging": self._shards[0].stager.pinned,
+                "h2d_staged_uploads": self._shards[0].stager.uploads,
                 "h2d_padding_bytes": (
                     (h2d_slots - h2d_valid) * EVENT_SLOT_BYTES
                 ),
@@ -1213,10 +1277,11 @@ class PoolRuntime:
             return "rebase"
         for lane, new_base, hops in hops_needed:
             self._lanes[lane].base = new_base
-            one = state_mod.lane_state(self._states, lane)
+            sh, i = self._locate(lane)
+            one = state_mod.lane_state(sh.state, i)
             for hop in hops:
                 one = streaming_mod.shift_state_base(one, hop, self._half_us)
-            self._states = state_mod.set_lane_state(self._states, lane, one)
+            sh.state = state_mod.set_lane_state(sh.state, i, one)
 
         xy = np.zeros((self._phys, bucket, 2), np.int32)
         ts = np.zeros((self._phys, bucket), np.int32)
@@ -1245,18 +1310,19 @@ class PoolRuntime:
         start their upload through the pinned stager.  One round uploads
         ``(lanes, chunk)`` slabs (mask and counts ride in the same slab);
         more upload the padded ``(ring_rounds, lanes, chunk)`` block, with
-        mask and counts as small uploads of their own.  The uploads are
-        accounted here; rings and state are not touched."""
+        mask and counts as small uploads of their own.  Each shard's slice
+        of the lanes goes through that shard's stager to its device.  The
+        uploads are accounted here; rings and state are not touched."""
         k = self._ring_rounds
         n = len(rounds)
         t0 = obs_mod.timer()
         masks = [r.mask for r in rounds]
         if n == 1 and k > 1:
             rnd = rounds[0]
-            xy, ts, valid, mask, n_valid = self._stager.put(
-                rnd.xy, rnd.ts, rnd.valid, rnd.mask, rnd.n_valid)
-            blk = _StagedBlock(bucket, 1, True, xy, ts, valid, mask,
-                               n_valid, masks)
+            parts = [sh.stager.put(*(a[sh.lo:sh.hi] for a in (
+                rnd.xy, rnd.ts, rnd.valid, rnd.mask, rnd.n_valid)))
+                for sh in self._shards]
+            blk = _StagedBlock(bucket, 1, True, parts, masks)
             self._m_h2d_slots[bucket].inc(self._phys * bucket)
         else:
             xy = np.zeros((k, self._phys, bucket, 2), np.int32)
@@ -1267,11 +1333,15 @@ class PoolRuntime:
             for i, rnd in enumerate(rounds):
                 xy[i], ts[i], valid[i] = rnd.xy, rnd.ts, rnd.valid
                 mask[i], n_valid[i] = rnd.mask, rnd.n_valid
-            xy_d, ts_d, valid_d = self._stager.put(xy, ts, valid)
-            blk = _StagedBlock(
-                bucket, n, False, xy_d, ts_d, valid_d,
-                state_mod.upload(mask, self._device),
-                state_mod.upload(n_valid, self._device), masks)
+            parts = []
+            for sh in self._shards:
+                lanes = slice(sh.lo, sh.hi)
+                parts.append((
+                    *sh.stager.put(xy[:, lanes], ts[:, lanes],
+                                   valid[:, lanes]),
+                    state_mod.upload(mask[:, lanes], sh.device),
+                    state_mod.upload(n_valid[:, lanes], sh.device)))
+            blk = _StagedBlock(bucket, n, False, parts, masks)
             self._m_h2d_slots[bucket].inc(k * self._phys * bucket)
         self._m_h2d_valid[bucket].inc(
             int(sum(int(r.n_valid.sum()) for r in rounds)))
@@ -1283,15 +1353,16 @@ class PoolRuntime:
             # and a block of this pass already dispatched: the gather and
             # upload ran ahead of the dispatch point
             self._m_stages_overlapped.inc()
-            if self._busy_probe is not None and \
-                    not self._busy_probe.query():
+            if not all(ev.query() for ev in self._busy_probe):
                 self._m_stage_hidden_s.inc(dt)
         return blk
 
     def _dispatch_block(self, blk: _StagedBlock) -> None:
         """The dispatch half: make ring room (``"drain"`` policy) and run
-        the block's rounds: for each, the lane-batched step (K1, K2 where
-        due), the masked select, and the ring push (K3)."""
+        the block's rounds: for each, on every shard, the lane-batched step
+        (K1, K2 where due), the masked select, and the ring push (K3, which
+        also ranks a compact ring's records).  The executed-slab witness
+        counts one signature per block, however many shards it spans."""
         bucket, k, n = blk.bucket, self._ring_rounds, blk.n
         if self._overflow == "drain" and \
                 self._m_ring_count[bucket].value() + n > k:
@@ -1303,23 +1374,24 @@ class PoolRuntime:
             self._m_forced_drains.inc()
 
         tcfg = self._tcfg[bucket]
+        rings = self._rings[bucket]
         for i in range(n):
-            xy, ts, valid, mask, n_valid = blk.round(i)
-            chunk = state_mod.ChunkInput(xy, ts, valid, *self._riders)
-            self._states, outs = state_mod.detector_step_(
-                tcfg, self._states, chunk, mask=blk.masks[i])
-            self._push(bucket, outs, mask, n_valid)
+            for j, sh in enumerate(self._shards):
+                xy, ts, valid, mask, n_valid = blk.round(i, j)
+                chunk = state_mod.ChunkInput(xy, ts, valid, *sh.riders)
+                sh.state, outs = state_mod.detector_step_(
+                    tcfg, sh.state, chunk, mask=blk.masks[i][sh.lo:sh.hi])
+                state_mod.ring_push(rings[j], outs, mask, n_valid)
         self._executed[bucket]["single" if blk.single else "block"].add(
-            tuple((tuple(t.shape), t.dtype) for t in
-                  (blk.xy, blk.ts, blk.valid, blk.mask, blk.n_valid)))
+            tuple((tuple(t.shape), t.dtype) for part in blk.parts
+                  for t in part))
         c = self._m_ring_count[bucket].value()
         self._m_ring_count[bucket].set(min(c + n, k))
         self._m_dropped_pred[bucket].add(max(0, c + n - k))
         self._m_rounds_executed.inc(n)
         self._pass_dispatches += 1
-        if self._device.type == "cuda":
-            self._busy_probe = torch.cuda.Event()
-            self._busy_probe.record()
+        self._busy_probe = tuple(_record_event(d)
+                                 for d in self._cuda_devices)
 
     # -- draining: sync (inline fetch) and async (seal to the reader) -------
 
@@ -1339,22 +1411,23 @@ class PoolRuntime:
                 self._wait_bucket_drained(bucket)
 
     def _drain_ring(self, bucket: int) -> None:
-        """Sync mode: one transfer of the live ring on the calling thread,
-        then distribute and mark the ring empty."""
+        """Sync mode: fetch the live ring on the calling thread (one
+        transfer per shard), then distribute and mark the ring empty."""
         if self._m_ring_count[bucket].value() == 0:
             return
-        ring = self._fetch_ring(self._rings[bucket])
+        host = self._fetch_ring(self._rings[bucket])
         self._m_host_fetches.inc()
-        self._distribute(bucket, ring)
+        self._distribute(bucket, host)
         self._m_ring_count[bucket].set(0)
-        self._reset_ring(self._rings[bucket])
+        for ring in self._rings[bucket]:
+            self._reset_ring(ring)
 
     def _seal_ring(self, bucket: int, *, block: bool = True) -> None:
         """Async mode's swap point (caller holds the lock): install a spare
         as the live ring and hand the sealed one, with an event recorded
-        after its last push, to the reader.  With every spare still in the
-        reader's hands this waits (releasing the lock), or with
-        ``block=False`` returns."""
+        after its last push on each CUDA device, to the reader.  With every
+        spare still in the reader's hands this waits (releasing the lock),
+        or with ``block=False`` returns."""
         if self._m_ring_count[bucket].value() == 0:
             return
         while not self._spares[bucket]:
@@ -1365,10 +1438,7 @@ class PoolRuntime:
             if self._m_ring_count[bucket].value() == 0:
                 return
         sealed = self._rings[bucket]
-        done = None
-        if self._device.type == "cuda":
-            done = torch.cuda.Event()
-            done.record()
+        done = {d: _record_event(d) for d in self._cuda_devices}
         self._rings[bucket] = self._spares[bucket].popleft()
         self._m_sealed[bucket].add(self._m_ring_count[bucket].value())
         self._inflight[bucket] += 1
@@ -1382,23 +1452,61 @@ class PoolRuntime:
             self._check_open()
             self._cv.wait()
 
-    def _fetch_ring(self, ring: state_mod.RingState) -> state_mod.RingState:
-        """The transfer both drain modes funnel through, on the current
-        stream (the reader's own in async mode, where it runs with no lock
-        held).  Returns a dense host ``RingState``: compact rings are
-        densified here."""
-        if self._readout == "compact":
-            return self._fetch_compact(ring)
-        host = state_mod.RingState(*pipeline_mod._fetch(*ring))
-        self._m_d2h_bytes.inc(obs_mod.leaves_nbytes(*ring))
-        return host
+    def _fetch_ring(self, rings: tuple, streams: Optional[dict] = None,
+                    done: Optional[dict] = None) -> state_mod.RingState:
+        """The transfer both drain modes funnel through: one per shard, on
+        the current stream, or with ``streams`` (the reader's, with no lock
+        held) on the copy stream of the shard's device after the pump's
+        event, which then also resets the shard's ring.  The cursors come
+        from the first shard (every shard pushes every round, so theirs
+        agree).  Returns a dense host ``RingState`` with the lanes in
+        global order: compact rings are densified shard by shard, so an
+        overflow row keeps its lane."""
+        parts, cursors = [], None
+        fetched = dense_eq = 0
+        for ring in rings:
+            if streams is None:
+                part = self._fetch_shard(ring, cursors)
+            else:
+                dev = ring.head.device
+                stream = streams[dev]
+                with torch.cuda.stream(stream):
+                    stream.wait_event(done[dev])
+                    part = self._fetch_shard(ring, cursors)
+                    self._reset_ring(ring)
+                    stream.synchronize()
+            host, cursors, nbytes, eq = part
+            parts.append(host)
+            fetched += nbytes
+            dense_eq += eq
+        self._m_d2h_bytes.inc(fetched)
+        self._m_d2h_saved.inc(max(0, dense_eq - fetched))
+        return sharding_mod._lane_gather(parts, lane_axis=1)
 
-    def _fetch_compact(self, ring: state_mod.CompactRingState):
-        """Compact readout: fetch the records plus the cursors in one
-        transfer (``vdd_idx`` only when DVFS is online — fixed-Vdd books
-        never read it), gather the dense rows of the slot-lanes whose kept
-        count overflowed the records into one second transfer, and scatter
-        back to a dense host ``RingState``.
+    def _fetch_shard(self, ring, cursors: Optional[tuple]):
+        """One shard's ring on the host, in one transfer: ``(host
+        RingState, cursors, bytes fetched, bytes of the dense readout)``.
+        The ring's ``(head, count, dropped)`` are fetched with it unless
+        ``cursors`` (the first shard's) are given."""
+        own = () if cursors is not None else (ring.head, ring.count,
+                                              ring.dropped)
+        if self._readout == "compact":
+            return self._fetch_compact(ring, own, cursors)
+        lanes = (ring.scores, ring.keep, ring.n_kept, ring.vdd_idx,
+                 ring.n_valid, ring.mask)
+        got = pipeline_mod._fetch(*lanes, *own)
+        cursors = tuple(got[6:]) if own else cursors
+        nbytes = obs_mod.leaves_nbytes(*lanes, *own)
+        return (state_mod.RingState(*got[:6], *cursors), cursors, nbytes,
+                nbytes)
+
+    def _fetch_compact(self, ring: state_mod.CompactRingState, own: tuple,
+                       cursors: Optional[tuple]):
+        """Compact readout of one shard: fetch the records plus the cursors
+        ``own`` in one transfer (``vdd_idx`` only when DVFS is online —
+        fixed-Vdd books never read it), gather the dense rows of the
+        slot-lanes whose kept count overflowed the records into one second
+        transfer, and scatter back to a dense host ``RingState``.
 
         The densify is exact: the step scores every event that was not
         kept exactly ``-inf`` with ``keep=False``, the fill value, so
@@ -1406,11 +1514,14 @@ class PoolRuntime:
         rounds, lanes, chunk = ring.scores.shape
         cap = ring.c_idx.shape[2]
         leaves = [ring.c_idx, ring.c_val, ring.n_kept, ring.n_valid,
-                  ring.mask, ring.head, ring.count, ring.dropped]
+                  ring.mask, *own]
         if self._online:
             leaves.append(ring.vdd_idx)
-        (c_idx, c_val, n_kept, n_valid, mask,
-         head, count, dropped, *rest) = pipeline_mod._fetch(*leaves)
+        c_idx, c_val, n_kept, n_valid, mask, *rest = \
+            pipeline_mod._fetch(*leaves)
+        if own:
+            cursors, rest = tuple(rest[:3]), rest[3:]
+        head, count, dropped = cursors
         vdd_idx = rest[0] if rest else np.zeros((rounds, lanes), np.int32)
         fetched = obs_mod.leaves_nbytes(*leaves)
 
@@ -1445,40 +1556,31 @@ class PoolRuntime:
             scores[slot, lane] = over_s[j]
             keep[slot, lane] = over_k[j]
 
-        self._m_d2h_bytes.inc(fetched)
         dense_eq = obs_mod.leaves_nbytes(
             ring.scores, ring.keep, ring.n_kept, ring.vdd_idx,
-            ring.n_valid, ring.mask, ring.head, ring.count, ring.dropped,
-        )
-        self._m_d2h_saved.inc(max(0, dense_eq - fetched))
-        return state_mod.RingState(
+            ring.n_valid, ring.mask, *own)
+        host = state_mod.RingState(
             scores=scores, keep=keep, n_kept=n_kept, vdd_idx=vdd_idx,
             n_valid=n_valid, mask=mask, head=head, count=count,
             dropped=dropped,
         )
+        return host, cursors, fetched, dense_eq
 
     def _reader_loop(self) -> None:
         """Async drain: fetch sealed rings FIFO on the reader's own CUDA
-        stream after the pump's event, then distribute under the lock and
-        return the ring to the spares (its copy is finished: the fetch
-        synchronised the stream).  Any exception is stored and re-raised
-        to the next public API caller."""
-        stream = (torch.cuda.Stream(self._device)
-                  if self._device.type == "cuda" else None)
+        stream per device after the pump's event, then distribute under
+        the lock and return the ring to the spares (its copy is finished:
+        the fetch synchronised the streams).  Any exception is stored and
+        re-raised to the next public API caller."""
+        streams = ({d: torch.cuda.Stream(d) for d in self._cuda_devices}
+                   if self._cuda_devices else None)
         while True:
             item = self._sealed_q.get()
             if item is _STOP:
                 return
             bucket, sealed, done = item
             try:
-                if stream is None:
-                    host = self._fetch_ring(sealed)
-                else:
-                    with torch.cuda.stream(stream):
-                        stream.wait_event(done)
-                        host = self._fetch_ring(sealed)
-                        self._reset_ring(sealed)
-                        stream.synchronize()
+                host = self._fetch_ring(sealed, streams, done)
             except BaseException as e:
                 with self._cv:
                     self._reader_exc = e
@@ -1488,8 +1590,9 @@ class PoolRuntime:
                 try:
                     self._m_host_fetches.inc()
                     self._distribute(bucket, host)
-                    if stream is None:
-                        self._reset_ring(sealed)
+                    if streams is None:
+                        for ring in sealed:
+                            self._reset_ring(ring)
                     self._spares[bucket].append(sealed)
                     self._m_sealed[bucket].set(max(
                         0, self._m_sealed[bucket].value() - int(host.count)

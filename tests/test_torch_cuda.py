@@ -369,13 +369,13 @@ def test_tos_update_kernels_match_plain(cuda, case):
     assert torch.equal(plain, got)
 
 
-def _serve_two_lanes(device, backend="fused", readout="compact"):
+def _serve_two_lanes(device, backend="fused", readout="compact", **pool_kw):
     cfg = pipeline.PipelineConfig(
         height=180, width=240, chunk=512, lut_every_chunks=2, dvfs=True,
         dvfs_online=True, inject_ber=True, device=device, backend=backend)
     streams = [synthetic.shapes_stream(duration_us=60_000, seed=s)
                for s in (0, 1)]
-    pool = DetectorPool(cfg, 2, ring_rounds=4, readout=readout)
+    pool = DetectorPool(cfg, 2, ring_rounds=4, readout=readout, **pool_kw)
     lanes = [pool.connect(seed=s) for s in (0, 1)]
     outs = {0: [], 1: []}
     for start in range(0, 6000, 1500):
@@ -429,6 +429,29 @@ def test_pool_round_pushes_with_one_launch(cuda, readout):
     ops.reset_launch_counts()
     _, stats = _serve_two_lanes("cuda", readout=readout)
     assert ops.LAUNCHES["compact"] == stats["rounds_executed"] > 0
+
+
+@pytest.mark.parametrize("shards", [1, 2])
+def test_sharded_pool_on_cuda_equals_unsharded(cuda, shards, monkeypatch):
+    """``shard=True`` on the card: a 1-wide lane mesh, and a 2-shard mesh
+    that repeats ``cuda:0`` (the split, the per-shard launches and the
+    gather, all on the card), bit-equal to the unsharded pool on the card;
+    ``pool_stats()`` equal apart from ``sharded`` / ``devices``; one K3
+    push per round and shard."""
+    from repro_torch.launch import sharding
+    mesh = sharding.LaneMesh((torch.device("cuda", 0),) * shards)
+    monkeypatch.setattr(sharding, "local_lane_mesh", lambda *a, **k: mesh)
+    want, wstats = _serve_two_lanes("cuda", shard=False)
+    ops.reset_launch_counts()
+    got, gstats = _serve_two_lanes("cuda", shard=True)
+    for i in (0, 1):
+        for g, w in zip(got[i], want[i]):
+            np.testing.assert_array_equal(g, w)
+    assert gstats["sharded"] and gstats["devices"] == shards
+    assert ops.LAUNCHES["compact"] == shards * gstats["rounds_executed"] > 0
+    for key in wstats:
+        if key not in WALL_TIME_KEYS | {"sharded", "devices"}:
+            assert gstats[key] == wstats[key], key
 
 
 def _serve_adaptive(device, readout):

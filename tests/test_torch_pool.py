@@ -129,8 +129,10 @@ def test_pool_refusals():
     _, tc = hx.cfg_pair("fixed")
     with pytest.raises(ValueError, match="8192"):
         DetectorPool(tc, capacity=2, buckets=(128, 16384))
-    with pytest.raises(ValueError, match="single card"):
-        DetectorPool(tc, capacity=2, shard=True)
+    pool = DetectorPool(tc, capacity=2, shard=True)
+    ps = pool.pool_stats()
+    assert ps["sharded"] and ps["devices"] == 1     # a 1-wide lane mesh
+    pool.close()
     for policy in ("adaptive", "ladder", "pack"):
         pool = DetectorPool(tc, capacity=2, policy=policy)
         assert pool.policy == policy
