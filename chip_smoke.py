@@ -56,6 +56,18 @@ checkout of this repository.  Phases, each printing its own lines:
      at full width, 2 layers, float32, ``moe_a2a=True`` on the mesh (its
      all-to-alls counted) against ``moe_apply`` without it: logits, aux
      and a train step's gradients;
+  1f. the dry-run and roofline tools (M11c-2), lines ``[dryrun]``: ``python
+     -m repro_torch.launch.dryrun`` on qwen2-0.5b ``train_4k`` and
+     olmoe-1b-7b ``decode_32k`` at full size on the 16x16 single-pod mesh
+     (a fake world of 256 in each of two processes, side by side): every
+     record ok, its three roofline terms, dominant term and useful ratio
+     printed; the per-device counter over one real qwen2-0.5b train step
+     on the card (batch 8 x seq 256, remat ``dots``, the 1x1 mesh) and
+     over the same step on fake tensors: dot FLOPs, HBM bytes, collective
+     bytes and collectives equal, the terms beside the profiled device
+     busy time and the counted bytes beside ``max_memory_allocated``; the
+     runner's ``roofline(dryrun)`` rows over the records, with
+     ``dryrun_cells_ok`` equal to the ok records;
   2. K1 (fused chunk step) in place (``fused_step_cuda_``), functional
      and under a lane mask against its plain PyTorch version on the card,
      on ``K1_CASES`` (180x240 and 1280x720 at 1 and 4 lanes; E of 1, 300
@@ -3602,6 +3614,182 @@ def mesh_phase(smi, *, device="cuda", full=True):
         torch.cuda.empty_cache()
 
 
+DRYRUN_CELLS = (("qwen2-0.5b", "train_4k"), ("olmoe-1b-7b", "decode_32k"))
+# a CPU rehearsal runs the cells' smoke configs at these sizes
+DRYRUN_SMOKE_SHAPES = {"train_4k": ("train", 64, 8),
+                       "decode_32k": ("decode", 64, 8)}
+
+
+def _dryrun_cmd(arch, shape, out, device, full):
+    """The dry-run CLI as a user runs it (``full``), or its rehearsal on the
+    cell's smoke config at ``DRYRUN_SMOKE_SHAPES``."""
+    argv = ["--arch", arch, "--shape", shape, "--mesh", "single", "--out",
+            out, "--device", device]
+    if full:
+        return [sys.executable, "-m", "repro_torch.launch.dryrun", *argv]
+    boot = ("import sys; from repro_torch import configs; "
+            "configs.get = configs.get_smoke; "
+            f"configs.SHAPES.update({DRYRUN_SMOKE_SHAPES!r}); "
+            "from repro_torch.launch import dryrun; "
+            "sys.exit(dryrun.main(sys.argv[1:]))")
+    return [sys.executable, "-c", boot, *argv]
+
+
+def dryrun_phase(smi, *, device="cuda", full=True):
+    """Phase 1f ``[dryrun]``: the dry-run and roofline tools (M11c-2).
+    (a) ``python -m repro_torch.launch.dryrun`` on ``DRYRUN_CELLS`` at full
+    size on the single-pod mesh (16x16, a fake world of 256 in each
+    subprocess, the two run side by side): every record ok, its terms
+    printed.  (b) The counter over one real train step of qwen2-0.5b
+    (batch 8 x seq 256, remat ``dots``, the 1x1 mesh) on the card and over
+    the same step on fake tensors: dot FLOPs, HBM bytes, collective bytes
+    and collectives equal; the terms beside the profiled device busy time,
+    and the counted argument plus peak temporary bytes beside
+    ``max_memory_allocated``.  (c) The runner's ``roofline(dryrun)`` rows
+    over (a)'s records: ``dryrun_cells_ok`` equals the ok records.
+    ``full=False`` rehearses it on the CPU at the smoke configs."""
+    import os
+    import shutil
+    import subprocess
+    import tempfile
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import configs
+    from repro_torch.benchmarks import roofline_table
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.mesh import HW, make_local_mesh
+    from repro_torch.meshctx import use_mesh_rules
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import tree_map
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.train_step import make_train_step
+    from repro_torch.utils.hlo_analysis import analyze
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    t_phase = time.perf_counter()
+
+    # --- (a) two full-size cells, each in a process of its own ----------
+    out = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    try:
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            _dryrun_cmd(a, s, out, dev.type, full), cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for a, s in DRYRUN_CELLS]
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+        wall = time.perf_counter() - t0
+        recs = roofline_table.load(out)
+        for (a, s), p, log in zip(DRYRUN_CELLS, procs, logs):
+            for line in log.splitlines()[-4:]:
+                print(f"[dryrun]   | {line}")
+            rec = next((r for r in recs if r["arch"] == a
+                        and r["shape"] == s), None)
+            if p.returncode != 0 or rec is None or not rec["ok"]:
+                raise AssertionError(
+                    f"[dryrun] {a} {s}: exit {p.returncode}, "
+                    f"{(rec or {}).get('error')}\n{log[-3000:]}")
+            rf, ma = rec["roofline"], rec["memory_analysis"]
+            print(f"[dryrun] {smi}: {a} {s}{'' if full else ' (smoke)'} on "
+                  f"the {rec['chips']}-card single-pod mesh: ok, lower_s "
+                  f"{rec['lower_s']:.2f}, compile_s {rec['compile_s']:.2f} "
+                  f"(host); per card: compute {rf['compute_s']:.6g} s, "
+                  f"memory {rf['memory_s']:.6g} s, collective "
+                  f"{rf['collective_s']:.6g} s, dominant {rf['dominant']}, "
+                  f"useful_ratio {rf['useful_ratio']:.4f}; dot FLOPs "
+                  f"{rec['hlo']['dot_flops']:.6g}, HBM bytes "
+                  f"{rec['hlo']['hbm_bytes']:.6g}, collectives "
+                  f"{rec['hlo']['n_collectives']} "
+                  f"{ {k: f'{v:.4g}' for k, v in rf['collective_breakdown'].items()} }"
+                  f"; argument / output / temp bytes "
+                  f"{ma['argument_size_in_bytes']} / "
+                  f"{ma['output_size_in_bytes']} / "
+                  f"{ma['temp_size_in_bytes']}; model_flops "
+                  f"{rf['model_flops']:.6g}")
+        print(f"[dryrun] {smi}: the two dry-run processes side by side "
+              f"took {wall:.1f} s")
+
+        # --- (c) the runner's roofline(dryrun) rows over (a)'s records --
+        rows = roofline_table.rows(out)
+        n_ok = sum(1 for r in recs if r.get("ok"))
+        if rows[-1] != ("dryrun_cells_ok", 0.0, float(n_ok)) or n_ok != len(
+                DRYRUN_CELLS):
+            raise AssertionError(f"[dryrun] rows {rows}, {n_ok} ok records")
+        print(f"[dryrun] {smi}: roofline(dryrun) rows over them: "
+              + ", ".join(f"{n} {v:.4g}" for n, _, v in rows))
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+    # --- (b) the counter over a real step and over the same step fake ---
+    arch = "qwen2-0.5b"
+    cfg = configs.get(arch) if full else configs.get_smoke(arch)
+    batch, seq = (8, 256) if full else (2, 64)
+    mesh = make_local_mesh(device=dev)
+    rules = sh.make_rules(cfg, mesh, global_batch=batch)
+    opt = AdamWConfig(lr=3e-4, warmup_steps=4, total_steps=30)
+    step = make_train_step(cfg, opt)
+    params, _ = T.init_params(cfg, torch.Generator(dev).manual_seed(0))
+    state = adamw_init(params, opt)
+    data = train_cli.synthetic_batch_fn(cfg, batch, seq, device=dev)(0)
+
+    def run(*args):
+        with use_mesh_rules(mesh, rules):
+            return analyze(step, *args)
+
+    step(params, state, data)            # warm up (cuBLAS handles, caches)
+    if cuda:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    real = run(params, state, data)[1]
+    if cuda:
+        torch.cuda.synchronize(dev)
+    real_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) if cuda else float("nan")
+    mode = FakeTensorMode(allow_non_fake_inputs=True)
+    fake_args = [tree_map(mode.from_tensor, x)
+                 for x in (params, state, data)]
+    t0 = time.perf_counter()
+    fake = run(*fake_args)[1]
+    fake_s = time.perf_counter() - t0
+    keys = ("dot_flops", "hbm_bytes", "collective_bytes", "n_collectives")
+    diff = [k for k in keys if getattr(real, k) != getattr(fake, k)]
+    if diff:
+        raise AssertionError(f"[dryrun] the fake step's counts differ from "
+                             f"the real step's in {diff}: real {real}, "
+                             f"fake {fake}")
+    if cuda:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step(params, state, data)
+            torch.cuda.synchronize(dev)
+        busy = sum(r.self_device_time_total for r in prof.key_averages()
+                   if str(r.device_type).endswith("CUDA")) / 1e3
+    else:
+        busy = float("nan")
+    print(f"[dryrun] {smi}: {arch}{'' if full else ' (smoke)'} train step, "
+          f"batch {batch} x seq {seq}, remat {cfg.remat}, 1x1 mesh: the "
+          f"real step on {dev} and the same step on fake tensors count "
+          f"equal dot FLOPs {real.dot_flops:.6g}, HBM bytes "
+          f"{real.hbm_bytes:.6g}, collective bytes {real.collective_bytes}, "
+          f"{real.n_collectives} collectives (counted run {real_s:.2f} s "
+          f"real, {fake_s:.2f} s fake); at the H100's rates compute "
+          f"{real.dot_flops / HW.PEAK_BF16_FLOPS * 1e3:.3f} ms, memory "
+          f"{real.hbm_bytes / HW.HBM_BW * 1e3:.3f} ms, beside {busy:.3f} ms "
+          f"of profiled device busy time per step; counted arguments + "
+          f"peak temporaries {(real.argument_bytes + real.temp_bytes) / 2**30:.3f}"
+          f" GiB (fake: {(fake.argument_bytes + fake.temp_bytes) / 2**30:.3f}"
+          f" GiB) beside max_memory_allocated {peak / 2**30:.3f} GiB "
+          f"(allocated before the step {base / 2**30 if cuda else float('nan'):.3f}"
+          f" GiB); phase {time.perf_counter() - t_phase:.1f} s")
+    del params, state, data, fake_args
+    if cuda:
+        torch.cuda.empty_cache()
+
+
 def _lm_paths(tree, path=()):
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _lm_paths(tree[k],
@@ -3646,6 +3834,9 @@ def main() -> int:
     # local mesh (no kernel of the port) ---------------------------------
     lm_examples_phase(smi)
     mesh_phase(smi)
+
+    # --- 1f. the dry-run and roofline tools (fake worlds; no kernel) ----
+    dryrun_phase(smi)
 
     # --- 2. K1 against its plain version -------------------------------
     rng = np.random.default_rng(0)

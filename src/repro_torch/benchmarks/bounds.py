@@ -19,8 +19,9 @@ from __future__ import annotations
 import numpy as np
 
 __all__ = ["MEM_BPS", "FP32_OPS", "FP32_ROUNDED", "INT32_OPS",
-           "TENSOR_FP16_FLOPS", "covered", "k1_work", "k1_bound", "k2_bound",
-           "k3_bound", "push_bound", "tos_bound"]
+           "TENSOR_FP16_FLOPS", "HBM_BYTES", "ICI_BW", "VMEM_BYTES",
+           "covered", "k1_work", "k1_bound", "k2_bound", "k3_bound",
+           "push_bound", "tos_bound"]
 
 MEM_BPS = 3.35e12            # H100 SXM HBM3, bytes/s (data sheet)
 FP32_OPS = 66.9e12           # H100 SXM float32 outside the tensor cores
@@ -28,6 +29,15 @@ FP32_ROUNDED = FP32_OPS / 2  # separately rounded adds or multiplies: the
                              # peak counts an FMA as two operations
 INT32_OPS = 132 * 64 * 1.98e9   # 64 INT32 lanes per SM, 132 SMs, 1.98 GHz
 TENSOR_FP16_FLOPS = 989e12   # H100 SXM dense fp16 on the tensor cores
+                             # (bf16 is the same rate)
+HBM_BYTES = 80e9             # H100 SXM device memory, 80 GB (data sheet)
+ICI_BW = 450e9               # NVLink 4, bytes/s per direction (data sheet:
+                             # 900 GB/s bidirectional per card)
+"""The NVLink rate between the cards of one node.  A 16x16 mesh spans 32
+eight-card nodes, whose links to each other are their network cards',
+which are slower: a collective term at this rate is a lower bound."""
+VMEM_BYTES = 228 * 1024      # shared memory per SM, 228 KiB (Hopper tuning
+                             # guide): the card's nearest thing to VMEM
 
 
 def _bound(nbytes, t_ops):

@@ -10,8 +10,11 @@ from ``bench_hwmodel`` (module label ``hwmodel(fig9,fig10)``),
 ``bench_throughput`` (``throughput(fig1b,fig10d)``), ``bench_dvfs``
 (``dvfs(tableI,fig8)``), ``bench_auc`` (``auc(fig11)``),
 ``bench_tos_kernels`` (``tos_kernels(perf)``), ``bench_streaming``
-(``streaming(serving)``) and ``scenarios`` (``scenarios(slo)``), in the
-reference's order.  Rows whose name ends in ``_skipped``
+(``streaming(serving)``), ``scenarios`` (``scenarios(slo)``) and
+``roofline_table`` (``roofline(dryrun)``: the dry-run's records under
+``experiments/dryrun``, read, not made), in the reference's order.  Each
+module's ``rows`` gets the ``smoke`` and ``device`` arguments it takes.
+Rows whose name ends in ``_skipped``
 record a measurement this host cannot take, with 0 in both columns.
 ``--json-out`` writes the same rows in the reference's JSON shape
 (``{"smoke", "rows": {name: {"us_per_call", "derived", "module"[,
@@ -30,19 +33,21 @@ moves, the fused step's round-trips, the D2H ratio) may drift by ``--tol``
 overload p99s) by ``--tol-time`` (3.0, i.e. 4x), and only when the run's
 ``--smoke`` flag equals the baseline's.  The gate fails closed: a gated
 baseline row that this run lacks or skipped counts as a regression, and so
-does a gate that checked no row.  The reference's one ``roofline(dryrun)``
-row (``dryrun_cells_ok``) has no gated suffix.
+does a gate that checked no row.  The ``roofline(dryrun)`` rows
+(``dryrun_cells_ok``, the ``_compute_frac`` rows) have no gated suffix.
 """
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import sys
 import time
 
 from repro_torch.benchmarks import (bench_auc, bench_dvfs, bench_hwmodel,
                                     bench_streaming, bench_throughput,
-                                    bench_tos_kernels, scenarios)
+                                    bench_tos_kernels, roofline_table,
+                                    scenarios)
 
 MODULES = (
     ("hwmodel(fig9,fig10)", bench_hwmodel),
@@ -52,6 +57,7 @@ MODULES = (
     ("tos_kernels(perf)", bench_tos_kernels),
     ("streaming(serving)", bench_streaming),
     ("scenarios(slo)", scenarios),
+    ("roofline(dryrun)", roofline_table),
 )
 
 # (suffix, direction) of the gated rows, the reference's tables: "higher"
@@ -134,9 +140,12 @@ def collect(smoke: bool = False, device: str = "cuda") -> tuple[dict, list]:
     records: dict = {}
     errors: list = []
     for label, mod in MODULES:
+        params = inspect.signature(mod.rows).parameters
+        kwargs = {k: v for k, v in (("smoke", smoke), ("device", device))
+                  if k in params}
         t0 = time.perf_counter()
         try:
-            for name, us, derived in mod.rows(smoke=smoke, device=device):
+            for name, us, derived in mod.rows(**kwargs):
                 print(f"{name},{us:.3f},{derived:.6g}")
                 rec = {"us_per_call": float(us), "derived": float(derived),
                        "module": label}

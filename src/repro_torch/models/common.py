@@ -21,6 +21,7 @@ __all__ = [
     "ModelConfig",
     "ParamSpec",
     "init_dense",
+    "abstract_params",
     "params_from_numpy",
     "rms_norm",
     "layer_norm",
@@ -175,6 +176,18 @@ def init_dense(gen: torch.Generator, tree_spec: dict, dtype
     axes: dict = {}
     for path, spec in _leaves(tree_spec):
         _set(params, path, _init_leaf(gen, spec, dtype))
+        _set(axes, path, spec.axes)
+    return params, axes
+
+
+def abstract_params(tree_spec: dict, dtype) -> tuple[dict, dict]:
+    """``init_dense`` without storage (the dry-run): (meta tensors of each
+    leaf's shape and ``dtype``, logical axes)."""
+    params: dict = {}
+    axes: dict = {}
+    for path, spec in _leaves(tree_spec):
+        _set(params, path, torch.empty(spec.shape, dtype=dtype,
+                                       device="meta"))
         _set(axes, path, spec.axes)
     return params, axes
 

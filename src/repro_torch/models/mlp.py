@@ -121,14 +121,18 @@ def moe_dispatch(topi: torch.Tensor, topw: torch.Tensor, e: int,
     Where an expert gets more than ``capacity`` assignments, the dropped
     ones clip onto its last slot, and the reference's scatter, applied in
     order, leaves the last of them there: slot C-1 holds the sentinel.
-    The port writes only the slots that end up kept, so no index repeats.
+    The port writes only the slots that end up kept; every other
+    assignment goes to one extra dump slot (index ``E*C``), sliced off
+    after the scatter.  Every shape is static (no ``bincount``, no boolean
+    mask), so the routing also runs on fake tensors (the dry-run).
     """
     t, k = topi.shape
     dev = topi.device
-    flat_e = topi.reshape(-1)
+    flat_e = topi.reshape(-1).long()
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
-    counts = torch.bincount(flat_e, minlength=e)
+    counts = torch.zeros(e, dtype=torch.long, device=dev).scatter_add(
+        0, flat_e, torch.ones_like(flat_e))
     starts = torch.cumsum(counts, 0) - counts
     pos_in_e = (torch.arange(t * k, dtype=torch.int32, device=dev)
                 - starts[sorted_e].to(torch.int32))
@@ -137,14 +141,18 @@ def moe_dispatch(topi: torch.Tensor, topw: torch.Tensor, e: int,
     # The last slot keeps its own assignment only if nothing clipped on it.
     written = keep & ((pos_in_e < capacity - 1)
                       | (counts[sorted_e] <= capacity))
-    slot = (sorted_e * capacity + pos_in_e.long())[written]
-    idx = torch.full((e * capacity,), t, dtype=torch.int32, device=dev)
-    idx[slot] = token_of[written]
-    wgt = torch.zeros((e * capacity,), dtype=torch.float32, device=dev)
-    wgt[slot] = topw.reshape(-1)[order][written]
-    # Where each (token, top-k slot) landed, -1 where it was dropped.
-    where = torch.full((t * k,), -1, dtype=torch.long, device=dev)
-    where[order[written]] = slot
+    dump = e * capacity
+    slot = torch.where(written, sorted_e * capacity + pos_in_e.long(), dump)
+    # Kept slots are distinct; only the dump slot receives repeated
+    # indices (in an order the card does not fix), and it is discarded.
+    idx = torch.full((dump + 1,), t, dtype=torch.int32, device=dev)
+    idx = idx.scatter(0, slot, token_of)[:dump]
+    wgt = torch.zeros((dump + 1,), dtype=torch.float32, device=dev)
+    wgt = wgt.scatter(0, slot, topw.reshape(-1)[order].float())[:dump]
+    # Where each (token, top-k slot) landed, -1 where it was dropped
+    # (``order`` is a permutation: no index repeats).
+    where = torch.empty((t * k,), dtype=torch.long, device=dev).scatter(
+        0, order, torch.where(written, slot, -1))
     return {"order": order, "pos_in_e": pos_in_e, "keep": keep,
             "idx": idx.reshape(e, capacity),
             "wgt": wgt.reshape(e, capacity), "slot": where.reshape(t, k)}

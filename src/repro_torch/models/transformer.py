@@ -5,6 +5,7 @@
 Public surface:
     init_spec(cfg)            -> tree of ParamSpec (stacked layers)
     init_params(cfg, gen)     -> (params, logical_axes)
+    abstract_params(cfg)      -> the same as meta tensors (no storage)
     forward_train(params, batch, cfg) -> (loss, metrics)
     forward_prefill(params, batch, cfg) -> last-position logits
     forward_prefill_cache(params, batch, cfg, cache_len)
@@ -12,6 +13,7 @@ Public surface:
     init_cache(cfg, batch, length)    -> decode cache as meta tensors
     zeros_cache(cfg, batch, length, device) -> the same, materialised
     forward_decode(params, tokens, cache, pos, cfg) -> (logits, new cache)
+    input_specs(cfg, kind, seq, batch) -> a step's inputs as meta tensors
 
 Per-layer parameters are stacked on axis 0 ('layers'), as in the
 reference; its ``lax.scan`` over that axis is a Python loop here, its
@@ -44,11 +46,12 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (ModelConfig, ParamSpec, _leaves,
                                        init_dense, make_rope, rms_norm,
                                        sinusoidal_positions, tree_map)
+from repro_torch.models.common import abstract_params as _abstract
 
 __all__ = [
-    "init_spec", "init_params", "forward_train", "forward_prefill",
-    "forward_prefill_cache", "forward_decode", "init_cache", "stack_n",
-    "zeros_cache",
+    "init_spec", "init_params", "abstract_params", "forward_train",
+    "forward_prefill", "forward_prefill_cache", "forward_decode",
+    "init_cache", "stack_n", "zeros_cache", "input_specs",
 ]
 
 
@@ -145,6 +148,11 @@ def init_spec(cfg: ModelConfig) -> dict:
 def init_params(cfg: ModelConfig, gen: torch.Generator):
     """Random parameters drawn from ``gen``, on its device."""
     return init_dense(gen, init_spec(cfg), cfg.param_dtype)
+
+
+def abstract_params(cfg: ModelConfig):
+    """(meta parameters, logical axes): ``init_params`` without storage."""
+    return _abstract(init_spec(cfg), cfg.param_dtype)
 
 
 def _layers(tree: dict) -> list[dict]:
@@ -298,7 +306,11 @@ def _chunked_ce(params, h, labels, mask, cfg: ModelConfig):
         logits = _lm_head(params, h[:, sl], cfg).float()
         logits = shard_act(logits, "batch", "seq", "vocab")
         lse = torch.logsumexp(logits, -1)
-        gold = torch.gather(logits, -1, labels[:, sl, None].long())[..., 0]
+        gold = torch.gather(logits, -1, labels[:, sl, None].long())
+        # resolved before the select: DTensor's vocab-parallel gather keeps
+        # a (B, c, 1) mask that a (B, c) partial cannot take (a no-op on
+        # plain tensors)
+        gold = shard_act(gold, "batch", "seq", None)[..., 0]
         mm = mask[:, sl].float()
         tot = tot + torch.sum((lse - gold) * mm)
         cnt = cnt + torch.sum(mm)
@@ -632,3 +644,40 @@ def _encdec_decode(params, x, cache, pos: int, cfg: ModelConfig):
         h = h + mlp_mod.mlp_apply(lp["mlp"], m)
         kvs.append(kv2)
     return h, {"kv": _stack_trees(kvs), "enc_out": enc_out}
+
+
+# ---------------------------------------------------------------------------
+# input_specs: meta stand-ins for the dry-run
+# ---------------------------------------------------------------------------
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape_kind: str, seq: int, batch: int
+                ) -> dict:
+    """A step's inputs as meta tensors.  shape_kind: train | prefill |
+    decode.  vlm adds ``img_embeds``; encdec adds ``frames`` and trains its
+    decoder on ``min(seq, max_target_len)`` tokens; decode gives one token,
+    the meta cache of ``seq`` positions and an int32 scalar ``pos``."""
+    i32 = torch.int32
+    if shape_kind in ("train", "prefill"):
+        tl = min(seq, cfg.max_target_len) if cfg.family == "encdec" else seq
+        specs = {
+            "tokens": _meta((batch, tl), i32),
+            "labels": _meta((batch, tl), i32),
+            "mask": _meta((batch, tl), torch.float32),
+        }
+        if cfg.family == "vlm":
+            specs["img_embeds"] = _meta((batch, cfg.n_img_tokens,
+                                         cfg.d_model), cfg.act_dtype)
+        if cfg.family == "encdec":
+            specs["frames"] = _meta((batch, cfg.n_audio_frames, cfg.d_model),
+                                    cfg.act_dtype)
+        return specs
+    if shape_kind == "decode":
+        return {"tokens": _meta((batch, 1), i32),
+                "cache": init_cache(cfg, batch, seq),
+                "pos": _meta((), i32)}
+    raise ValueError(shape_kind)

@@ -56,7 +56,9 @@ def test_port_has_the_slice_modules():
                  "launch.serve", "train.optimizer", "train.compression",
                  "train.checkpoint", "train.fault_tolerance",
                  "launch.train", "compat", "meshctx", "launch.mesh",
-                 "examples.serve_lm", "examples.train_lm"):
+                 "examples.serve_lm", "examples.train_lm", "utils",
+                 "utils.hlo_analysis", "launch.roofline", "launch.dryrun",
+                 "benchmarks.roofline_table"):
         assert "repro_torch." + name in MODULES
     for src in ("fused_step", "harris", "compact", "tos_update", "tos_count"):
         assert (PORT / "csrc" / f"{src}.cu").is_file()

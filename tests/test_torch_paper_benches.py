@@ -136,7 +136,7 @@ def test_runner_order_is_the_references():
     assert ours == [label for label in ref if label in ours]
     assert ours[:4] == list(MODULES)
     assert ours[4:] == ["tos_kernels(perf)", "streaming(serving)",
-                        "scenarios(slo)"]
+                        "scenarios(slo)", "roofline(dryrun)"]
 
 
 def test_runner_prints_the_paper_modules(tmp_path, capsys, monkeypatch):
