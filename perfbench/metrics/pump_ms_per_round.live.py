@@ -1,0 +1,7 @@
+"""Host ms per pool round in the harness spans around pump() and poll()
+over the window (open loop): what a due slab waits behind."""
+from perfbench.metrics import _read
+
+
+def read(rec):
+    return _read.pump_ms_per_round(rec)
