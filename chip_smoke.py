@@ -257,7 +257,7 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.benchmarks.bounds import (k1_bound, k2_bound,  # noqa: E402
                                            k3_bound, push_bound, tos_bound)
 from repro_torch.benchmarks.timing import (cuda_ms, device_ms,  # noqa: E402
-                                           device_split)
+                                           device_rows, device_split)
 
 REL = 1e-5                   # LUT / score bound: |delta| <= REL * max|ref|
 
@@ -868,11 +868,9 @@ def profile_hd(smi, what, hd, cfg, groups, chunks=64):
         pipeline.run_pipeline(hd.xy[win], hd.ts[win], cfg)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # Device-side rows only (kernels, copies): an aten op's row repeats the
-    # device time of the kernels it launched.
-    rows = [r for r in prof.key_averages()
-            if str(r.device_type).endswith("CUDA")
-            and r.self_device_time_total > 0]
+    # Device-side rows only (kernels, copies): an aten op's row, or a
+    # span's, repeats the device time of the kernels it launched.
+    rows = [r for r in device_rows(prof) if r.self_device_time_total > 0]
     rows.sort(key=lambda r: -r.self_device_time_total)
     per = {g: 0.0 for g in (*groups, other)}
     for r in rows:
@@ -1624,8 +1622,7 @@ def profile_pool(smi, what, cfg, streams, seeds, n_events, reps=3,
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, prof_wall, _, st = serve_pool(cfg, streams, seeds, **kw)
-    dev_rows = [r for r in prof.key_averages()
-                if str(r.device_type).endswith("CUDA")]
+    dev_rows = device_rows(prof)
     busy = sum(r.self_device_time_total for r in dev_rows) / 1e3
     n_launch = sum(r.count for r in dev_rows)
     rounds = st["rounds_executed"]
@@ -2845,8 +2842,7 @@ def lm_phase(smi, *, device="cuda", full=True):
                 for pos in range(3, 3 + n):
                     toks, _, cache = step(params, toks, cache, pos, key)
                 sync()
-            rows = [r for r in prof.key_averages()
-                    if str(r.device_type).endswith("CUDA")]
+            rows = device_rows(prof)
             launches = sum(r.count for r in rows) / n
             dev_ms = sum(r.self_device_time_total for r in rows) / 1e3 / n
         else:
@@ -3215,8 +3211,7 @@ def train_phase(smi, *, device="cuda", full=True):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             run(n)
             sync()
-        rows = [r for r in prof.key_averages()
-                if str(r.device_type).endswith("CUDA")]
+        rows = device_rows(prof)
         launches = sum(r.count for r in rows) / n
         dev_ms = sum(r.self_device_time_total for r in rows) / 1e3 / n
         top = sorted(rows, key=lambda r: -r.self_device_time_total)[:5]
@@ -3766,8 +3761,8 @@ def dryrun_phase(smi, *, device="cuda", full=True):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             step(params, state, data)
             torch.cuda.synchronize(dev)
-        busy = sum(r.self_device_time_total for r in prof.key_averages()
-                   if str(r.device_type).endswith("CUDA")) / 1e3
+        busy = sum(r.self_device_time_total
+                   for r in device_rows(prof)) / 1e3
     else:
         busy = float("nan")
     print(f"[dryrun] {smi}: {arch}{'' if full else ' (smoke)'} train step, "

@@ -5,18 +5,30 @@ cost model (``benchmarks.bench_tos_kernels``).
 for the host to enqueue included); ``device_split`` / ``device_ms`` sum the
 device time of every kernel and copy a call launches, from the profiler;
 ``launch_floor_ms`` is an empty kernel's launch by CUDA events.  All need a
-CUDA device.
+CUDA device.  ``device_rows`` is the device records of a finished profile,
+which every device sum in the repository reads.
 """
 from __future__ import annotations
 
 import sys
 
-__all__ = ["cuda_ms", "device_ms", "device_split", "launch_floor_ms",
-           "EVENT_FALLBACKS"]
+__all__ = ["cuda_ms", "device_ms", "device_rows", "device_split",
+           "launch_floor_ms", "EVENT_FALLBACKS"]
 
 # Times per call that ``device_split`` took by CUDA events because the
 # profiler recorded nothing.
 EVENT_FALLBACKS: list[float] = []
+
+
+def device_rows(prof) -> list:
+    """The device rows of ``prof.key_averages()``: kernels, copies and
+    memsets.  A ``record_function`` range (a ``repro_torch.obs`` span) that
+    launched device work also has a device-side row, a user annotation as
+    long as the range; those rows are left out, as torch's own table leaves
+    them out, since they would count the range's kernels again."""
+    return [r for r in prof.key_averages()
+            if str(r.device_type).endswith("CUDA")
+            and not getattr(r, "is_user_annotation", False)]
 
 
 def cuda_ms(fn, iters=30, warmup=3) -> float:
@@ -65,8 +77,7 @@ def device_split(fn, names, iters=30, warmup=3, windows=3):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        rows = [r for r in prof.key_averages()
-                if str(r.device_type).endswith("CUDA")]
+        rows = device_rows(prof)
         total = sum(r.self_device_time_total for r in rows) / 1e3 / iters
         if total > 0 and all(r.count % iters == 0 for r in rows):
             break

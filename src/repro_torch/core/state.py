@@ -38,7 +38,9 @@ PyTorch.  ``select_update`` hands out a backend's standalone TOS update
 (the host-loop oracle's), ``lut_refresh`` its LUT routine.
 
 The random stream is JAX's threefry with the reference's key discipline
-(one split per chunk iff injecting), so BER draws are draw-exact.
+(one split per chunk iff injecting), so BER draws are draw-exact.  The
+split and the draw run in the span ``step.draw`` (``repro_torch.obs``),
+timed on the device too while the profiler runs.
 ``state_from_numpy`` / ``state_to_numpy`` carry a state across from and
 back to ``jax.device_get`` of a ``repro`` state (one stream, or a pool's
 lanes stacked on a leading axis).
@@ -57,6 +59,7 @@ from typing import Callable, NamedTuple, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from repro_torch import obs as obs_mod
 from repro_torch.core import ber as ber_mod
 from repro_torch.core import dvfs as dvfs_mod
 from repro_torch.core import harris as harris_mod
@@ -467,9 +470,10 @@ def _step(cfg, state: DetectorState, chunk: ChunkInput,
         cfg, state, chunk, vdd_cap)
     key, bits = state.key, None
     if cfg.inject_ber:
-        key, sub = prng.split(key)
-        bits = ber_mod.write_error_bits(sub, tuple(state.surface.shape[1:]),
-                                        ber_c)
+        with obs_mod.span("step.draw", device=state.surface.device):
+            key, sub = prng.split(key)
+            bits = ber_mod.write_error_bits(
+                sub, tuple(state.surface.shape[1:]), ber_c)
     lane_mask = (None if active.all()
                  else _lanes_on(active, state.surface.device))
     surface, sae, keep, raw = _chunk_block(cfg, inplace)(

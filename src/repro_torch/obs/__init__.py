@@ -5,7 +5,8 @@ runtime and scheduler mutate registry handles (``metrics``); attachable
 sinks (``sinks``) fan emissions out to logs / JSONL / Prometheus text;
 ``schema`` declares every exported stats key with its description and is
 the one source of truth for docs, registry metric HELP text, and the
-golden-key tests.
+golden-key tests; ``spans`` times named ranges inside the port while the
+torch profiler runs (``span``).
 """
 from repro_torch.obs.metrics import (  # noqa: F401
     Counter,
@@ -23,6 +24,8 @@ from repro_torch.obs.sinks import (  # noqa: F401
     read_jsonl,
 )
 from repro_torch.obs import schema  # noqa: F401
+from repro_torch.obs import spans  # noqa: F401
+from repro_torch.obs.spans import span  # noqa: F401
 from repro_torch.obs.d2h import leaves_nbytes  # noqa: F401
 
 __all__ = [
@@ -39,4 +42,6 @@ __all__ = [
     "PromSink",
     "read_jsonl",
     "schema",
+    "span",
+    "spans",
 ]

@@ -83,6 +83,17 @@ which apply at the next pass.
 reader takes it only to distribute and recycle, never across a transfer.
 A pump token serializes whole pump passes, migrations and knob writes.
 
+**Spans.**  While the torch profiler runs, the pool opens
+``repro_torch.obs`` spans.  The pump thread: ``pool.pump`` over a pass,
+in it ``pool.collect`` per round, ``pool.stage`` and ``pool.dispatch``
+per block, and in a dispatch ``pool.forced_drain`` and, per round and
+shard, ``pool.step`` (with the step's ``step.draw``) and ``pool.push``;
+``pool.poll``, in it ``pool.seal`` and ``pool.poll_wait``.  The reader
+thread opens none.  A round opens at most four ranges (collect, step,
+draw, push).  ``pump_stage_s`` and ``pump_drain_wait_s`` are the
+``pool.stage`` and ``pool.forced_drain`` spans' durations, counted with
+the profiler off too.
+
 **Lane sharding.**  ``shard=True``, or ``"auto"`` with more than one local
 device of the pool's type, serves the lanes over a 1-D lane mesh
 (``launch.sharding.local_lane_mesh``); otherwise the pool is one shard on
@@ -676,7 +687,7 @@ class PoolRuntime:
         backpressure drain under ``"drain"``).  Blocks are staged and
         dispatched through one stage-ahead deque, flushed before the pass
         returns, so every staged round executes exactly once, in order."""
-        with self._lock:
+        with obs_mod.span("pool.pump"), self._lock:
             self._check_open()
             self._acquire_pump()
             try:
@@ -748,7 +759,7 @@ class PoolRuntime:
         on a transfer: it returns what earlier drains already delivered.
         Rounds lost under ``on_overflow="drop_oldest"`` are absent here
         and counted in ``stats()['ring_dropped_rounds']``."""
-        with self._lock:
+        with obs_mod.span("pool.poll"), self._lock:
             self._check_open()
             self._check_lane(lane)
             bucket = self._lanes[lane].bucket
@@ -1265,44 +1276,47 @@ class PoolRuntime:
         if not ready:
             return None
 
-        hops_needed = []
-        for lane, n in ready:
-            ln = self._lanes[lane]
-            new_base, hops = streaming_mod.plan_rebase(
-                ln.base, ln.buf_ts[:n], self._cfg
-            )
-            if hops:
-                hops_needed.append((lane, new_base, hops))
-        if hops_needed and not allow_rebase:
-            return "rebase"
-        for lane, new_base, hops in hops_needed:
-            self._lanes[lane].base = new_base
-            sh, i = self._locate(lane)
-            one = state_mod.lane_state(sh.state, i)
-            for hop in hops:
-                one = streaming_mod.shift_state_base(one, hop, self._half_us)
-            sh.state = state_mod.set_lane_state(sh.state, i, one)
+        with obs_mod.span("pool.collect"):
+            hops_needed = []
+            for lane, n in ready:
+                ln = self._lanes[lane]
+                new_base, hops = streaming_mod.plan_rebase(
+                    ln.base, ln.buf_ts[:n], self._cfg
+                )
+                if hops:
+                    hops_needed.append((lane, new_base, hops))
+            if hops_needed and not allow_rebase:
+                return "rebase"
+            for lane, new_base, hops in hops_needed:
+                self._lanes[lane].base = new_base
+                sh, i = self._locate(lane)
+                one = state_mod.lane_state(sh.state, i)
+                for hop in hops:
+                    one = streaming_mod.shift_state_base(one, hop,
+                                                         self._half_us)
+                sh.state = state_mod.set_lane_state(sh.state, i, one)
 
-        xy = np.zeros((self._phys, bucket, 2), np.int32)
-        ts = np.zeros((self._phys, bucket), np.int32)
-        valid = np.zeros((self._phys, bucket), bool)
-        mask = np.zeros((self._phys,), bool)
-        n_valid = np.zeros((self._phys,), np.int32)
-        for lane, n in ready:
-            ln = self._lanes[lane]
-            xy[lane, :n] = ln.buf_xy[:n]
-            ts64 = np.full((bucket,), ln.buf_ts[min(n, ln.buf_ts.size) - 1],
-                           np.int64)
-            ts64[:n] = ln.buf_ts[:n]
-            ts[lane] = (ts64 - ln.base).astype(np.int32)
-            valid[lane, :n] = True
-            mask[lane] = True
-            n_valid[lane] = n
-            ln.buf_xy = ln.buf_xy[n:]
-            ln.buf_ts = ln.buf_ts[n:]
-            ln.events_folded += n
-            ln.gen += 1
-        return _Round(xy, ts, valid, mask, n_valid)
+            xy = np.zeros((self._phys, bucket, 2), np.int32)
+            ts = np.zeros((self._phys, bucket), np.int32)
+            valid = np.zeros((self._phys, bucket), bool)
+            mask = np.zeros((self._phys,), bool)
+            n_valid = np.zeros((self._phys,), np.int32)
+            for lane, n in ready:
+                ln = self._lanes[lane]
+                xy[lane, :n] = ln.buf_xy[:n]
+                ts64 = np.full((bucket,),
+                               ln.buf_ts[min(n, ln.buf_ts.size) - 1],
+                               np.int64)
+                ts64[:n] = ln.buf_ts[:n]
+                ts[lane] = (ts64 - ln.base).astype(np.int32)
+                valid[lane, :n] = True
+                mask[lane] = True
+                n_valid[lane] = n
+                ln.buf_xy = ln.buf_xy[n:]
+                ln.buf_ts = ln.buf_ts[n:]
+                ln.events_folded += n
+                ln.gen += 1
+            return _Round(xy, ts, valid, mask, n_valid)
 
     def _stage_block(self, bucket: int, rounds: list, *,
                      stage_ahead: bool = False) -> _StagedBlock:
@@ -1315,37 +1329,37 @@ class PoolRuntime:
         uploads are accounted here; rings and state are not touched."""
         k = self._ring_rounds
         n = len(rounds)
-        t0 = obs_mod.timer()
-        masks = [r.mask for r in rounds]
-        if n == 1 and k > 1:
-            rnd = rounds[0]
-            parts = [sh.stager.put(*(a[sh.lo:sh.hi] for a in (
-                rnd.xy, rnd.ts, rnd.valid, rnd.mask, rnd.n_valid)))
-                for sh in self._shards]
-            blk = _StagedBlock(bucket, 1, True, parts, masks)
-            self._m_h2d_slots[bucket].inc(self._phys * bucket)
-        else:
-            xy = np.zeros((k, self._phys, bucket, 2), np.int32)
-            ts = np.zeros((k, self._phys, bucket), np.int32)
-            valid = np.zeros((k, self._phys, bucket), bool)
-            mask = np.zeros((k, self._phys), bool)
-            n_valid = np.zeros((k, self._phys), np.int32)
-            for i, rnd in enumerate(rounds):
-                xy[i], ts[i], valid[i] = rnd.xy, rnd.ts, rnd.valid
-                mask[i], n_valid[i] = rnd.mask, rnd.n_valid
-            parts = []
-            for sh in self._shards:
-                lanes = slice(sh.lo, sh.hi)
-                parts.append((
-                    *sh.stager.put(xy[:, lanes], ts[:, lanes],
-                                   valid[:, lanes]),
-                    state_mod.upload(mask[:, lanes], sh.device),
-                    state_mod.upload(n_valid[:, lanes], sh.device)))
-            blk = _StagedBlock(bucket, n, False, parts, masks)
-            self._m_h2d_slots[bucket].inc(k * self._phys * bucket)
-        self._m_h2d_valid[bucket].inc(
-            int(sum(int(r.n_valid.sum()) for r in rounds)))
-        dt = obs_mod.timer() - t0
+        with obs_mod.span("pool.stage", timed=True) as sp:
+            masks = [r.mask for r in rounds]
+            if n == 1 and k > 1:
+                rnd = rounds[0]
+                parts = [sh.stager.put(*(a[sh.lo:sh.hi] for a in (
+                    rnd.xy, rnd.ts, rnd.valid, rnd.mask, rnd.n_valid)))
+                    for sh in self._shards]
+                blk = _StagedBlock(bucket, 1, True, parts, masks)
+                self._m_h2d_slots[bucket].inc(self._phys * bucket)
+            else:
+                xy = np.zeros((k, self._phys, bucket, 2), np.int32)
+                ts = np.zeros((k, self._phys, bucket), np.int32)
+                valid = np.zeros((k, self._phys, bucket), bool)
+                mask = np.zeros((k, self._phys), bool)
+                n_valid = np.zeros((k, self._phys), np.int32)
+                for i, rnd in enumerate(rounds):
+                    xy[i], ts[i], valid[i] = rnd.xy, rnd.ts, rnd.valid
+                    mask[i], n_valid[i] = rnd.mask, rnd.n_valid
+                parts = []
+                for sh in self._shards:
+                    lanes = slice(sh.lo, sh.hi)
+                    parts.append((
+                        *sh.stager.put(xy[:, lanes], ts[:, lanes],
+                                       valid[:, lanes]),
+                        state_mod.upload(mask[:, lanes], sh.device),
+                        state_mod.upload(n_valid[:, lanes], sh.device)))
+                blk = _StagedBlock(bucket, n, False, parts, masks)
+                self._m_h2d_slots[bucket].inc(k * self._phys * bucket)
+            self._m_h2d_valid[bucket].inc(
+                int(sum(int(r.n_valid.sum()) for r in rounds)))
+        dt = sp.seconds
         self._m_stages.inc()
         self._m_stage_s.inc(dt)
         if stage_ahead and self._pass_dispatches > 0:
@@ -1363,35 +1377,38 @@ class PoolRuntime:
         (K1, K2 where due), the masked select, and the ring push (K3, which
         also ranks a compact ring's records).  The executed-slab witness
         counts one signature per block, however many shards it spans."""
-        bucket, k, n = blk.bucket, self._ring_rounds, blk.n
-        if self._overflow == "drain" and \
-                self._m_ring_count[bucket].value() + n > k:
-            t0 = obs_mod.timer()
-            self._drain_bucket(bucket, wait=False)
-            w = obs_mod.timer() - t0
-            self._m_drain_wait.inc(w)
-            self._m_last_drain_wait[bucket].set(w)
-            self._m_forced_drains.inc()
+        with obs_mod.span("pool.dispatch"):
+            bucket, k, n = blk.bucket, self._ring_rounds, blk.n
+            if self._overflow == "drain" and \
+                    self._m_ring_count[bucket].value() + n > k:
+                with obs_mod.span("pool.forced_drain", timed=True) as sp:
+                    self._drain_bucket(bucket, wait=False)
+                self._m_drain_wait.inc(sp.seconds)
+                self._m_last_drain_wait[bucket].set(sp.seconds)
+                self._m_forced_drains.inc()
 
-        tcfg = self._tcfg[bucket]
-        rings = self._rings[bucket]
-        for i in range(n):
-            for j, sh in enumerate(self._shards):
-                xy, ts, valid, mask, n_valid = blk.round(i, j)
-                chunk = state_mod.ChunkInput(xy, ts, valid, *sh.riders)
-                sh.state, outs = state_mod.detector_step_(
-                    tcfg, sh.state, chunk, mask=blk.masks[i][sh.lo:sh.hi])
-                state_mod.ring_push(rings[j], outs, mask, n_valid)
-        self._executed[bucket]["single" if blk.single else "block"].add(
-            tuple((tuple(t.shape), t.dtype) for part in blk.parts
-                  for t in part))
-        c = self._m_ring_count[bucket].value()
-        self._m_ring_count[bucket].set(min(c + n, k))
-        self._m_dropped_pred[bucket].add(max(0, c + n - k))
-        self._m_rounds_executed.inc(n)
-        self._pass_dispatches += 1
-        self._busy_probe = tuple(_record_event(d)
-                                 for d in self._cuda_devices)
+            tcfg = self._tcfg[bucket]
+            rings = self._rings[bucket]
+            for i in range(n):
+                for j, sh in enumerate(self._shards):
+                    xy, ts, valid, mask, n_valid = blk.round(i, j)
+                    chunk = state_mod.ChunkInput(xy, ts, valid, *sh.riders)
+                    with obs_mod.span("pool.step"):
+                        sh.state, outs = state_mod.detector_step_(
+                            tcfg, sh.state, chunk,
+                            mask=blk.masks[i][sh.lo:sh.hi])
+                    with obs_mod.span("pool.push"):
+                        state_mod.ring_push(rings[j], outs, mask, n_valid)
+            self._executed[bucket]["single" if blk.single else "block"].add(
+                tuple((tuple(t.shape), t.dtype) for part in blk.parts
+                      for t in part))
+            c = self._m_ring_count[bucket].value()
+            self._m_ring_count[bucket].set(min(c + n, k))
+            self._m_dropped_pred[bucket].add(max(0, c + n - k))
+            self._m_rounds_executed.inc(n)
+            self._pass_dispatches += 1
+            self._busy_probe = tuple(_record_event(d)
+                                     for d in self._cuda_devices)
 
     # -- draining: sync (inline fetch) and async (seal to the reader) -------
 
@@ -1430,27 +1447,31 @@ class PoolRuntime:
         or with ``block=False`` returns."""
         if self._m_ring_count[bucket].value() == 0:
             return
-        while not self._spares[bucket]:
-            if not block:
-                return
-            self._check_open()
-            self._cv.wait()
-            if self._m_ring_count[bucket].value() == 0:
-                return
-        sealed = self._rings[bucket]
-        done = {d: _record_event(d) for d in self._cuda_devices}
-        self._rings[bucket] = self._spares[bucket].popleft()
-        self._m_sealed[bucket].add(self._m_ring_count[bucket].value())
-        self._inflight[bucket] += 1
-        self._m_ring_count[bucket].set(0)
-        self._sealed_q.put((bucket, sealed, done))
+        with obs_mod.span("pool.seal"):
+            while not self._spares[bucket]:
+                if not block:
+                    return
+                self._check_open()
+                self._cv.wait()
+                if self._m_ring_count[bucket].value() == 0:
+                    return
+            sealed = self._rings[bucket]
+            done = {d: _record_event(d) for d in self._cuda_devices}
+            self._rings[bucket] = self._spares[bucket].popleft()
+            self._m_sealed[bucket].add(self._m_ring_count[bucket].value())
+            self._inflight[bucket] += 1
+            self._m_ring_count[bucket].set(0)
+            self._sealed_q.put((bucket, sealed, done))
 
     def _wait_bucket_drained(self, bucket: int) -> None:
         """Block (releasing the lock) until the reader has fetched and
         distributed every ring sealed for this bucket."""
-        while self._inflight[bucket] > 0:
-            self._check_open()
-            self._cv.wait()
+        if self._inflight[bucket] == 0:
+            return
+        with obs_mod.span("pool.poll_wait"):
+            while self._inflight[bucket] > 0:
+                self._check_open()
+                self._cv.wait()
 
     def _fetch_ring(self, rings: tuple, streams: Optional[dict] = None,
                     done: Optional[dict] = None) -> state_mod.RingState:

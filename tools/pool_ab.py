@@ -76,8 +76,10 @@ def main() -> int:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             _, _, _, st = run()
+        # the checkout under test may predate ``timing.device_rows``
         dev_rows = [r for r in prof.key_averages()
-                    if str(r.device_type).endswith("CUDA")]
+                    if str(r.device_type).endswith("CUDA")
+                    and not getattr(r, "is_user_annotation", False)]
         busy = sum(r.self_device_time_total for r in dev_rows) / 1e3
         launched = sum(r.count for r in dev_rows)
         med = sorted(per)[len(per) // 2]
