@@ -8,7 +8,7 @@ Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of this repository.  Phases, each printing its own lines:
 
   1. environment: the card's name and power limit, and the ``nvcc`` build
-     of the five kernel sources (``csrc/*.cu``, built in parallel for
+     of the six kernel sources (``csrc/*.cu``, built in parallel for
      ``sm_90a``);
   1b. the LM scaffold's serving path (M11a; plain PyTorch, no kernel of
      the port lies on it), lines ``[lm]``: the precision switches (TF32
@@ -91,6 +91,12 @@ checkout of this repository.  Phases, each printing its own lines:
      31, 8192 events in one 128-tile, ragged sizes, 4 lanes, a background
      below ``th``; K6 and K7 with ``cap`` E, 1 and half the busiest tile's
      hits): every output equal;
+  3d. the write-error draw (``csrc/ber_draw.cu``: every lane's key split
+     and 5-bit masks in one launch) against its plain chain
+     (``prng.split`` and ``ber.write_error_bits``) on ``BER_DRAW_CASES``
+     (1280x720 x4, DAVIS240 x16, 1280x720 x1) at 0.6 V's rate, at 0.8
+     V's (0) and the two mixed lane by lane, three chained draws each: new
+     keys and masks equal;
   4. end to end on the DAVIS240 sensor (180x240): ``run_pipeline`` with
      BER at a fixed 0.6 V and with online DVFS, on the card and on the CPU
      (plain versions), held to the parity bounds; PR-AUC printed;
@@ -234,7 +240,10 @@ checkout of this repository.  Phases, each printing its own lines:
      K7 also one ``torch.bmm`` of the fp16 one-hot bands, the counts part
      only, as the library yardstick, at 1280x720 and at DAVIS240; a
      profile of the HD step (K1 per pass, K2, device-to-device copies per
-     chunk), and the JSON summary line.
+     chunk); the write-error draw at 1280x720 x1 and x4 and DAVIS240 x16
+     (kernel by CUDA events and by the profiler, the plain chain's time
+     and launches, the bound from ``bounds.ber_draw_bound``), and the JSON
+     summary line.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -757,6 +766,107 @@ def k2_phase(rng, dev, sizes=((37, 101), (180, 240), (720, 1280)),
         raise AssertionError("K2 took Sobel size 1")
     print(f"[K2] {n} checks bit-equal, max |delta| {err}; Sobel 1 refused")
     return err, n
+
+
+# The write-error draw's cases: (what, lanes, H, W); the serving cells'
+# four HD cameras and chip_smoke's DAVIS240 x16 pool, and one HD lane.
+BER_DRAW_CASES = (("HD x4", 4, 720, 1280), ("DAVIS240 x16", 16, 180, 240),
+                  ("HD B=1", 1, 720, 1280))
+
+
+def ber_draw_rates(b):
+    """The draw's rate sets for ``b`` lanes: all at 0.6 V's BER, all at
+    0.8 V's (0), and the two mixed lane by lane."""
+    from repro_torch.core import hwmodel
+    lo, hi = hwmodel.ber_at(0.6), hwmodel.ber_at(0.8)
+    return {"0.6 V": [lo] * b, "0.8 V": [hi] * b,
+            "0.6/0.8 V mixed": [(lo, hi)[i % 2] for i in range(b)]}
+
+
+def ber_draw_phase(dev, cases=BER_DRAW_CASES, draws=3):
+    """Phase 3d: the write-error draw kernel (``ber_draw.ber_draw_cuda``)
+    against its plain chain (``ber_draw_ref``: ``prng.split`` and
+    ``ber.write_error_bits``) at every rate set of ``ber_draw_rates``, over
+    ``draws`` draws whose keys chain: new keys and masks equal.  Returns
+    the checks.  Small cases, with ``ber_draw_cuda`` pointed at
+    ``ber_draw_ref``, rehearse it on the CPU."""
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.kernels import ber_draw
+    n = 0
+    for what, b, h, w in cases:
+        for name, rate in ber_draw_rates(b).items():
+            ber = torch.tensor(rate, dtype=torch.float32, device=dev)
+            key = want = torch.stack([prng.prng_key(1000 + i, device=dev)
+                                      for i in range(b)])
+            flips = 0
+            for _ in range(draws):
+                key, bits = ber_draw.ber_draw_cuda(key, (h, w), ber)
+                want, want_bits = ber_draw.ber_draw_ref(want, (h, w), ber)
+                sync(dev)
+                if not torch.equal(key, want):
+                    raise AssertionError(f"draw new keys differ: {what}, "
+                                         f"{name}")
+                if not torch.equal(bits, want_bits):
+                    d = int((bits != want_bits).sum())
+                    raise AssertionError(f"draw masks differ at {d} "
+                                         f"pixels: {what}, {name}")
+                flips += sum(int(((bits >> i) & 1).sum()) for i in range(5))
+                n += 1
+            print(f"[ber_draw] {what} {h}x{w}, {name}: {draws} chained "
+                  f"draws, new keys and masks equal to the plain chain "
+                  f"({flips} bits set)")
+    print(f"[ber_draw] {n} draws equal, max |delta| 0")
+    return n
+
+
+def ber_draw_timing(smi, dev, cases=BER_DRAW_CASES):
+    """The draw kernel's time per call at each case's shape (0.6 V's rate
+    in every lane), by CUDA events over back-to-back calls and from the
+    profiler, beside the plain chain's (and its launches per call) and the
+    bound; one ``[time]`` line a case.  Returns ``{what: times}``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.benchmarks.bounds import ber_draw_bound
+    from repro_torch.core import hwmodel, prng
+    from repro_torch.kernels import ber_draw
+    out = {}
+    for what, b, h, w in cases:
+        key = torch.stack([prng.prng_key(i, device=dev) for i in range(b)])
+        ber = torch.full((b,), hwmodel.ber_at(0.6), dtype=torch.float32,
+                         device=dev)
+
+        def kern():
+            return ber_draw.ber_draw_cuda(key, (h, w), ber)
+
+        def plain():
+            return ber_draw.ber_draw_ref(key, (h, w), ber)
+
+        t = dict(ms=cuda_ms(kern),
+                 device_ms=device_split(kern, ("ber_draw_kernel",))[1][
+                     "ber_draw_kernel"],
+                 plain_ms=cuda_ms(plain, iters=5, warmup=1),
+                 plain_device_ms=device_ms(plain, iters=5, warmup=1))
+        plain()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            plain()
+            torch.cuda.synchronize()
+        t["plain_launches"] = sum(r.count for r in device_rows(prof))
+        (t["bound_ms"], t["bound_by"], t["bound_bytes_ms"],
+         t["bound_operations_ms"]) = ber_draw_bound(b, h, w)
+        dev_ms = ("not measured" if t["device_ms"] is None
+                  else f"{t['device_ms']:.5f} ms")
+        print(f"[time] {smi}: write-error draw {what} {w}x{h}x5: kernel "
+              f"{t['ms']:.5f} ms by CUDA events, {dev_ms} device "
+              f"(profiler); plain chain {t['plain_ms']:.4f} ms events, "
+              f"{t['plain_device_ms']:.4f} ms device, "
+              f"{t['plain_launches']} launches; bound {t['bound_ms']:.5f} "
+              f"ms by {t['bound_by']} (operations "
+              f"{t['bound_operations_ms']:.5f} ms, bytes "
+              f"{t['bound_bytes_ms']:.5f} ms)")
+        out[what] = t
+    return out
 
 
 def tos_backend_phase(smi, davis, hd, davis_cfgs, gpu_runs, cpu_runs,
@@ -3869,6 +3979,9 @@ def main() -> int:
     k47_err = tos_kernel_phase(np.random.default_rng(13), dev)
     k57_err, k46_err, _ = tos_edge_phase(np.random.default_rng(14), dev)
 
+    # --- 3d. the write-error draw against its plain chain ---------------
+    ber_draw_phase(dev)
+
     # --- 4/5. the main path: run_pipeline on the card ------------------
     davis = synthetic.shapes_stream(duration_us=200_000, seed=0)
     hd = synthetic.shapes_stream(height=720, width=1280,
@@ -4026,11 +4139,18 @@ def main() -> int:
     key = prng.prng_key(0, device=dev)[None]
     prng_ms = cuda_ms(lambda: ber_mod.write_error_bits(key, (h, w), ber),
                       iters=10)
+    draw_t = ber_draw_timing(smi, dev)
+    d1 = draw_t["HD B=1"]
+    d1_dev = ("not measured" if d1["device_ms"] is None
+              else f"{d1['device_ms']:.5f} ms")
     print(f"[time] {smi}: K1 in place {k1_ms:.4f} ms by CUDA events "
           f"(plain {k1_plain:.4f} ms, bound {k1_bms:.5f} ms by {k1_by} in "
           f"place, {k1_oop:.5f} ms by bytes out of place); K2 "
           f"{k2_ms:.4f} ms (plain {k2_plain:.4f} ms); threefry BER draw "
-          f"(plain torch, 1280x720x5) {prng_ms:.4f} ms")
+          f"(plain torch, 1280x720x5) {prng_ms:.4f} ms; the draw kernel "
+          f"with its key split {d1['ms']:.5f} ms by CUDA events, {d1_dev} "
+          f"device (profiler), bound {d1['bound_ms']:.5f} ms by "
+          f"{d1['bound_by']}")
 
     k1_full = device_split(k1_call(ins, ber, bits), K1_KERNELS)
     k1_nb_full = device_split(k1_call(ins), K1_KERNELS)
@@ -4213,6 +4333,12 @@ def main() -> int:
             "max_abs_err": max(
                 k47_err, k57_err if src == "tos_count" else k46_err),
             **tos_t[mode]})
+    kernels.append({
+        "name": "ber_draw", "route": "cuda",
+        "source": "src/repro_torch/csrc/ber_draw.cu", "replaces": None,
+        "launches": launches["ber_draw"], "max_abs_err": 0,
+        "library_ms": None, **draw_t["HD B=1"],
+        "hd_x4": draw_t["HD x4"], "davis240_x16": draw_t["DAVIS240 x16"]})
     print(f"[env] whole call {time.perf_counter() - t_call:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -21,7 +21,7 @@ import numpy as np
 __all__ = ["MEM_BPS", "FP32_OPS", "FP32_ROUNDED", "INT32_OPS",
            "TENSOR_FP16_FLOPS", "HBM_BYTES", "ICI_BW", "VMEM_BYTES",
            "covered", "k1_work", "k1_bound", "k2_bound", "k3_bound",
-           "push_bound", "tos_bound"]
+           "push_bound", "tos_bound", "DISPATCH_OPS", "ber_draw_bound"]
 
 MEM_BPS = 3.35e12            # H100 SXM HBM3, bytes/s (data sheet)
 FP32_OPS = 66.9e12           # H100 SXM float32 outside the tensor cores
@@ -38,6 +38,15 @@ eight-card nodes, whose links to each other are their network cards',
 which are slower: a collective term at this rate is a lower bound."""
 VMEM_BYTES = 228 * 1024      # shared memory per SM, 228 KiB (Hopper tuning
                              # guide): the card's nearest thing to VMEM
+DISPATCH_OPS = 2 * INT32_OPS  # 4 schedulers issue 32 lanes a clock per
+                             # SM: an integer add may go to the FMA pipe
+                             # (IMAD) beside the 64-lane integer ALU pipe
+THREEFRY_OPS = 72   # one threefry2x32 block: 2 key adds, 20 rounds of add,
+                    # rotate and xor, 5 injections of two adds
+THREEFRY_ALU = 40   # its rotates and xors: only the ALU pipe issues them
+DRAW_OPS = THREEFRY_OPS + 4  # one write-error bit: a block, then the xor
+                             # of its words, shift, compare and bit set
+DRAW_ALU = THREEFRY_ALU + 2  # of which on the ALU pipe alone: + xor, shift
 
 
 def _bound(nbytes, t_ops):
@@ -146,3 +155,19 @@ def tos_bound(b, h, w, e, patch, keep, *, centre):
     nbytes = b * h * w * (2 + (4 if centre else 0)) + b * e * (8 + 1)
     ops = 2 * int(keep.sum()) * patch * patch
     return _bound(nbytes, ops / INT32_OPS)
+
+
+def ber_draw_bound(b, h, w):
+    """Least time for one write-error draw (``kernels.ber_draw``): per
+    lane two threefry blocks for the key split, per pixel five bits of
+    ``DRAW_OPS`` each.  The operations take the longer of their rotates and
+    xors (``DRAW_ALU`` a bit) at the ALU pipe's ``INT32_OPS`` and all of
+    them at the issue rate ``DISPATCH_OPS``; the bytes are the keys and
+    rates read and the new keys and int32 masks written once.  Returns (bound ms,
+    what bounds it, bytes ms, operations ms)."""
+    alu = b * (2 * THREEFRY_ALU + 5 * h * w * DRAW_ALU)
+    ops = b * (2 * THREEFRY_OPS + 5 * h * w * DRAW_OPS)
+    nbytes = b * (16 + 4 + 16 + 4 * h * w)
+    t_b = nbytes / MEM_BPS
+    t_o = max(alu / INT32_OPS, ops / DISPATCH_OPS)
+    return (*_bound(nbytes, t_o), t_b * 1e3, t_o * 1e3)

@@ -39,8 +39,11 @@ PyTorch.  ``select_update`` hands out a backend's standalone TOS update
 
 The random stream is JAX's threefry with the reference's key discipline
 (one split per chunk iff injecting), so BER draws are draw-exact.  The
-split and the draw run in the span ``step.draw`` (``repro_torch.obs``),
-timed on the device too while the profiler runs.
+split and the draw are one call, ``ops.ber_draw_op`` (one launch of the
+draw kernel on CUDA) on the three kernel backends and the plain
+``ber_draw.ber_draw_ref`` on ``"torch"``; it runs in the span
+``step.draw`` (``repro_torch.obs``), timed on the device too while the
+profiler runs.
 ``state_from_numpy`` / ``state_to_numpy`` carry a state across from and
 back to ``jax.device_get`` of a ``repro`` state (one stream, or a pool's
 lanes stacked on a leading axis).
@@ -67,7 +70,7 @@ from repro_torch.core import hwmodel
 from repro_torch.core import prng
 from repro_torch.core import stcf as stcf_mod
 from repro_torch.core import tos as tos_mod
-from repro_torch.kernels import fused_step, ops
+from repro_torch.kernels import ber_draw, fused_step, ops
 
 __all__ = [
     "BACKENDS",
@@ -435,11 +438,13 @@ def detector_step(cfg, state: DetectorState, chunk: ChunkInput,
     composition ``fused_step_ref`` on ``"torch"``, and on ``"nmc"`` /
     ``"batched"`` plain STCF and score around K4 / K5 for all lanes in one
     launch.  All draw the BER bits here, with one key split per chunk iff
-    injecting, as the reference does.  The fused and plain blocks take the
-    lane mask and leave the inactive lanes' surfaces alone; ``"nmc"`` /
-    ``"batched"`` apply the bits to them too and the step selects their old
-    surfaces back.  Inactive lanes' other leaves are selected back, their
-    cursors do not advance and their LUT is not rebuilt.
+    injecting, as the reference does: every lane, active or not, through
+    ``ops.ber_draw_op`` (the plain ``ber_draw_ref`` on ``"torch"``).  The
+    fused and plain blocks take the lane mask and leave the inactive lanes'
+    surfaces alone; ``"nmc"`` / ``"batched"`` apply the bits to them too
+    and the step selects their old surfaces back.  Inactive lanes' other
+    leaves are selected back, their cursors do not advance and their LUT
+    is not rebuilt.
     """
     return _step(cfg, state, chunk, mask, inplace=False)
 
@@ -470,10 +475,10 @@ def _step(cfg, state: DetectorState, chunk: ChunkInput,
         cfg, state, chunk, vdd_cap)
     key, bits = state.key, None
     if cfg.inject_ber:
+        draw = (ber_draw.ber_draw_ref if cfg.backend == "torch"
+                else ops.ber_draw_op)
         with obs_mod.span("step.draw", device=state.surface.device):
-            key, sub = prng.split(key)
-            bits = ber_mod.write_error_bits(
-                sub, tuple(state.surface.shape[1:]), ber_c)
+            key, bits = draw(key, tuple(state.surface.shape[1:]), ber_c)
     lane_mask = (None if active.all()
                  else _lanes_on(active, state.surface.device))
     surface, sae, keep, raw = _chunk_block(cfg, inplace)(

@@ -12,6 +12,9 @@ plain PyTorch version.
   ``"batched"`` backends: ``csrc/tos_update.cu`` computes the replay's
   closed form per 64x64 tile (K4, K6), ``csrc/tos_count.cu`` counts on
   the tensor cores (K5, K7).
+* ``ber_draw``    — the write-error draw: every lane's key split and its
+  per-pixel 5-bit xor masks in one launch, bit-exact to the plain threefry
+  (``csrc/ber_draw.cu``; it replaces no TPU kernel).
 * ``ops``         — the dispatching wrappers: a CPU tensor gets the plain
   version, a CUDA tensor gets the kernel (or an error).  Each counts its
   kernel launches.

@@ -24,7 +24,8 @@ __all__ = ["SOURCES", "BUILD_DIR", "build", "load", "nvcc_path",
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("fused_step", "harris", "compact", "tos_update", "tos_count")
+SOURCES = ("fused_step", "harris", "compact", "tos_update", "tos_count",
+           "ber_draw")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -2,18 +2,19 @@
 
 ``fused_step_op`` / ``fused_step_op_`` (K1, functional / in place),
 ``harris_response_op`` (K2), ``compact_slots_op`` and ``ring_push_op``
-(K3) and ``tos_update_op`` (K4-K7) take the tensor's device as the choice of
-spelling: a CPU tensor gets the plain PyTorch version, a CUDA tensor gets
-the hand-written kernel — or an error; there is no fallback from a CUDA
-tensor to a plain version.  Surfaces may be one ``(H, W)`` lane or a
-``(B, H, W)`` batch.
+(K3), ``tos_update_op`` (K4-K7) and ``ber_draw_op`` (the write-error draw)
+take the tensor's device as the choice of spelling: a CPU tensor gets the
+plain PyTorch version, a CUDA tensor gets the hand-written kernel — or an
+error; there is no fallback from a CUDA tensor to a plain version.
+Surfaces may be one ``(H, W)`` lane or a ``(B, H, W)`` batch.
 
 Each wrapper counts its kernel launches in ``LAUNCHES`` (plain calls on the
 CPU are not counted), so a run can show that its main path went through the
 kernels; ``"compact"`` counts K3's ring pushes, dense and compact, and its
-standalone compactions.  ``CALLS["fused_step"]`` counts K1's wrapper calls
-on either device (on CUDA it equals the launch count), so K1 calls per
-chunk, a structural count of the cost model, reads the same on the CPU.
+standalone compactions.  ``CALLS`` counts K1's and the draw's wrapper calls
+on either device (on CUDA each equals its launch count), so K1 calls per
+chunk, a structural count of the cost model, and draws per chunk read the
+same on the CPU.
 """
 from __future__ import annotations
 
@@ -22,11 +23,12 @@ import math
 import torch
 
 from repro_torch.core import tos as tos_mod
-from repro_torch.kernels import compact, fused_step, harris_conv, tos_update
+from repro_torch.kernels import (ber_draw, compact, fused_step, harris_conv,
+                                 tos_update)
 
 __all__ = ["fused_step_op", "fused_step_op_", "harris_response_op",
            "compact_slots_op", "ring_push_op", "tos_update_op",
-           "centre_surface", "TOS_MODES", "LAUNCHES", "CALLS",
+           "ber_draw_op", "centre_surface", "TOS_MODES", "LAUNCHES", "CALLS",
            "reset_launch_counts"]
 
 # tos_update_op's modes, each with its kernel in ``kernels.tos_update``.
@@ -34,9 +36,9 @@ TOS_MODES = {"nmc": "nmc_stream", "batched": "batched_fused",
              "nmc_binned": "nmc_stream_binned",
              "batched_binned": "batched_fused_binned"}
 
-LAUNCHES = {"fused_step": 0, "harris": 0, "compact": 0,
+LAUNCHES = {"fused_step": 0, "harris": 0, "compact": 0, "ber_draw": 0,
             **{mode: 0 for mode in TOS_MODES}}
-CALLS = {"fused_step": 0}
+CALLS = {"fused_step": 0, "ber_draw": 0}
 
 
 def reset_launch_counts() -> None:
@@ -190,3 +192,16 @@ def tos_update_op(tos: torch.Tensor, xy: torch.Tensor, valid: torch.Tensor,
             patch=patch, th=th)
         LAUNCHES[mode] += 1
     return out[0] if single else out
+
+
+def ber_draw_op(key: torch.Tensor, shape: tuple, ber: torch.Tensor):
+    """One key split and write-error draw for every lane: ``(new_key,
+    bits)`` from ``key (B, 2)`` int64 and the float32 rate ``ber (B,)``;
+    bits ``(B, *shape)`` int32.  On CUDA this is one launch."""
+    CALLS["ber_draw"] += 1
+    if _device_type(key) == "cpu":
+        return ber_draw.ber_draw_ref(key, shape, ber)
+    out = ber_draw.ber_draw_cuda(key.contiguous(), tuple(shape),
+                                 ber.to(torch.float32).contiguous())
+    LAUNCHES["ber_draw"] += 1
+    return out

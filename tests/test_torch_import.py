@@ -39,7 +39,7 @@ def test_port_has_the_slice_modules():
                  "core.tos", "core.ber", "core.harris", "core.state",
                  "core.pipeline", "kernels._build", "kernels.fused_step",
                  "kernels.harris_conv", "kernels.ops", "kernels.compact",
-                 "kernels.tos_update",
+                 "kernels.tos_update", "kernels.ber_draw",
                  "obs.metrics", "obs.sinks", "obs.schema", "obs.d2h",
                  "launch.sharding", "serve.streaming", "serve.scheduler",
                  "serve.runtime", "serve.pool", "launch.serve_events",
@@ -60,7 +60,8 @@ def test_port_has_the_slice_modules():
                  "utils.hlo_analysis", "launch.roofline", "launch.dryrun",
                  "benchmarks.roofline_table"):
         assert "repro_torch." + name in MODULES
-    for src in ("fused_step", "harris", "compact", "tos_update", "tos_count"):
+    for src in ("fused_step", "harris", "compact", "tos_update", "tos_count",
+                "ber_draw"):
         assert (PORT / "csrc" / f"{src}.cu").is_file()
 
 
