@@ -64,7 +64,11 @@ class Rig:
     def __init__(self, pool, lanes, chunk: int):
         self.pool, self.lanes, self.chunk = pool, lanes, chunk
         self.spans: dict = {}
-        self.turns = []          # per pump: (first chunk, chunks) per lane
+        # per pump, per lane: events delivered before and after the turn.
+        # A turn's polls deliver every chunk its pump folded, and only
+        # those: a move staged at a poll applies at the next pump, so the
+        # chunks a fed range completes may fold a turn later.
+        self.turns = []
         self.on_delivery = None  # called with (lane, now) after a poll
 
     @contextmanager
@@ -83,23 +87,36 @@ class Rig:
 
     def turn(self, counts) -> None:
         """Feed each lane ``counts[i]`` events, pump, poll every lane."""
-        start = [ln.fed // self.chunk for ln in self.lanes]
+        start = [ln.delivered for ln in self.lanes]
         with self.span("feed"):
             for ln, n in zip(self.lanes, counts):
                 if n:
                     self.feed(ln, n)
         with self.span("pump"):
             self.pool.pump()
-        self.turns.append([(s, ln.fed // self.chunk - s)
-                           for s, ln in zip(start, self.lanes)])
         with self.span("poll"):
             for ln in self.lanes:
-                s, k = self.pool.poll(ln.id)
-                ln.scores.append(s)
-                ln.kept.append(k)
-                ln.delivered += len(s)
-                if self.on_delivery is not None:
-                    self.on_delivery(ln, time.perf_counter())
+                self._deliver(ln, self.pool.poll(ln.id))
+        self.turns.append(list(zip(start, (ln.delivered
+                                           for ln in self.lanes))))
+
+    def flush(self, lane: Lane) -> None:
+        """Fold the lane's buffered chunks and its partial tail
+        (``pool.flush``) and keep what that returns as the lane's outputs:
+        how a loop whose lanes hold partial chunks ends its window."""
+        start = [ln.delivered for ln in self.lanes]
+        with self.span("flush"):
+            self._deliver(lane, self.pool.flush(lane.id))
+        self.turns.append(list(zip(start, (ln.delivered
+                                           for ln in self.lanes))))
+
+    def _deliver(self, ln: Lane, got) -> None:
+        s, k = got
+        ln.scores.append(s)
+        ln.kept.append(k)
+        ln.delivered += len(s)
+        if self.on_delivery is not None:
+            self.on_delivery(ln, time.perf_counter())
 
     def outputs(self):
         return [(np.concatenate(ln.scores) if ln.scores else np.zeros(0),
@@ -184,6 +201,7 @@ def run(name: str, seed: int, seconds: float, trace: bool, *,
     if cuda:
         torch.cuda.empty_cache()
 
+    plans = [check.schedule(config, st) for st in lane_stats]
     rep = loop.report(drv, mix, state, win, extra)
     log(rep["log"])
     result = {"correct": False, "attempted": rep["attempted"],
@@ -197,7 +215,7 @@ def run(name: str, seed: int, seconds: float, trace: bool, *,
             result["metrics"][m["name"]] = {"value": vals[m["name"]],
                                             "unit": m["unit"]}
     else:
-        rec = record(spec, cfg, win, prof, lanes, outs, root)
+        rec = record(spec, cfg, win, prof, lanes, outs, plans, root)
         for m in spec["per_layer"]:
             v = manifest.metric_reader(m["name"], root).read(rec)
             if v is not None:
@@ -209,14 +227,17 @@ def run(name: str, seed: int, seconds: float, trace: bool, *,
                                "idle_gaps": prof["trace"].idle_gaps()}
 
     t = time.perf_counter()
-    checks, vdd = check.check(config, lanes, outs, lane_stats, device=device)
-    log(f"[check] reference over {sum(ln.fed for ln in lanes)} events on "
+    checks, vdd = check.check(config, lanes, outs, lane_stats, plans,
+                              device=device)
+    folded = sum(sum(check.sizes(plan)) for plan, _ in plans)
+    log(f"[check] reference over {folded} events on "
         f"{len(lanes)} lanes in {time.perf_counter() - t:.2f} s; chunks by "
         f"Vdd (V: chunks, the reference's DVFS picks) {vdd}")
     result["correct"] = all(c["value"] <= c["limit"]
                             for c in checks.values())
     result["loop"] = rep["keep"]
     result["vdd_chunks"] = vdd
+    result["schedules"] = [check.runs(plan) for plan, _ in plans]
     result["checks"] = checks
     return result
 
@@ -238,7 +259,7 @@ def traced_stretch(drv: Rig, mix: dict, loop, state, win: dict) -> dict:
             "turns": drv.turns[n0:]}
 
 
-def record(spec, cfg, win, prof, lanes, outs, root) -> dict:
+def record(spec, cfg, win, prof, lanes, outs, plans, root) -> dict:
     """What the per-layer readers read."""
     rec = {"window": win, "profile": None, "rooflines": {}}
     if prof is None or not prof["trace"].device:
@@ -248,7 +269,8 @@ def record(spec, cfg, win, prof, lanes, outs, root) -> dict:
     rec["profile"] = {"wall_s": prof["wall_s"], "rounds": prof["rounds"],
                       "busy_s": tr.busy_s, "records": len(tr.device),
                       "by_name": names}
-    rounds = profiled_rounds(spec["config"], cfg, prof["turns"], lanes, outs)
+    rounds = profiled_rounds(spec["config"], cfg, prof["turns"], lanes, outs,
+                             plans)
     for kname, mod in manifest.rooflines(root).items():
         bound_s, what, calls = mod.bound(rounds)
         hits = [v for k, v in names.items() if mod.CALL_KERNEL in k]
@@ -260,30 +282,50 @@ def record(spec, cfg, win, prof, lanes, outs, root) -> dict:
     return rec
 
 
-def profiled_rounds(config, cfg, turns, lanes, outs) -> list:
-    """Each pool round of the traced stretch, rebuilt from what the turns
-    fed: round ``r`` of a pump holds the lanes that were fed more than
-    ``r`` chunks."""
-    e, h, w = cfg.chunk, cfg.height, cfg.width
+def profiled_rounds(config, cfg, turns, lanes, outs, plans) -> list:
+    """Each pool round of the traced stretch, rebuilt from the turns: the
+    chunks a turn's poll delivered, each lane's cut as its schedule
+    (``plans``, ``check.schedule``'s) says, grouped by bucket; round ``r``
+    of a bucket in a pump holds the lanes that folded more than ``r`` of
+    its chunks, each at its ``r``-th, padded to the bucket."""
+    h, w = cfg.height, cfg.width
     phys = config["cameras"]
-    cap = (max(1, e // 8) if config["pool"].get("readout") == "compact"
-           else 0)
+    compact = config["pool"].get("readout") == "compact"
+    ends = [np.cumsum([n for _, n in plan], dtype=np.int64)
+            for plan, _ in plans]
     rounds = []
     for turn in turns:
-        for r in range(max(n for _, n in turn)):
-            act = [i for i, (_, n) in enumerate(turn) if n > r]
-            xy, keep, due = [], [], 0
-            for i in act:
-                c = turn[i][0] + r
-                xy.append(lanes[i].replay.take(c * e, (c + 1) * e)[0])
-                keep.append(outs[i][1][c * e:(c + 1) * e])
-                due += (c + 1) % cfg.lut_every_chunks == 0
-            rounds.append(SimpleNamespace(
-                xy=np.stack(xy), keep=np.stack(keep),
-                valid=np.ones((len(act), e), bool), h=h, w=w,
-                patch=cfg.patch, inject=cfg.inject_ber, due=due,
-                sobel=cfg.sobel_size, window=cfg.window_size, phys=phys,
-                e=e, cap=cap))
+        folded: dict = {}        # bucket -> lane -> its chunks, in order
+        for i, (d0, d1) in enumerate(turn):
+            for c in range(int(np.searchsorted(ends[i], d0, "right")),
+                           int(np.searchsorted(ends[i], d1, "right"))):
+                b = plans[i][0][c][0]
+                folded.setdefault(b, {}).setdefault(i, []).append(c)
+        for e in sorted(folded):
+            by_lane = folded[e]
+            for r in range(max(len(v) for v in by_lane.values())):
+                act = [i for i in sorted(by_lane) if len(by_lane[i]) > r]
+                xy, keep, valid, due = [], [], [], 0
+                for i in act:
+                    c = by_lane[i][r]
+                    n = plans[i][0][c][1]
+                    lo = int(ends[i][c]) - n
+                    x = lanes[i].replay.take(lo, lo + n)[0]
+                    k = outs[i][1][lo:lo + n]
+                    if n < e:
+                        x = np.concatenate([x, np.zeros((e - n, 2),
+                                                        x.dtype)])
+                        k = np.concatenate([k, np.zeros(e - n, bool)])
+                    xy.append(x)
+                    keep.append(k)
+                    valid.append(np.arange(e) < n)
+                    due += (c + 1) % cfg.lut_every_chunks == 0
+                rounds.append(SimpleNamespace(
+                    xy=np.stack(xy), keep=np.stack(keep),
+                    valid=np.stack(valid), h=h, w=w,
+                    patch=cfg.patch, inject=cfg.inject_ber, due=due,
+                    sobel=cfg.sobel_size, window=cfg.window_size, phys=phys,
+                    e=e, cap=max(1, e // 8) if compact else 0))
     return rounds
 
 

@@ -1,8 +1,12 @@
 """Plain reference of the served detector: one camera lane per row of a
 lane batch, chunk by chunk, in plain PyTorch (any device) and numpy.
 
-Per chunk of ``chunk`` consecutive events of a lane (the paper's pipeline,
-as the configuration states it):
+Per chunk of a lane (the paper's pipeline, as the configuration states
+it).  A chunk is ``chunk`` consecutive events, or, where a lane's chunk
+schedule is given, the next size it lists: a pool that moves a lane between
+chunk buckets folds it in chunks of each bucket in turn, and a flushed lane
+ends on a partial chunk.  The lane's chunk count runs on across a move:
+``c`` below counts every chunk the lane folded.
 
 1. DVFS: the lane's rate estimate reads the events of the two half-windows
    (``tw_us / 2``) before the chunk's first event; the operating point is
@@ -15,10 +19,12 @@ as the configuration states it):
    zeroes the values that fall below ``th`` and sets its centre to 255.
 4. Write errors: every nonzero pixel is written back through its 5-bit
    code (value - 224), each bit flipping with the chunk's rate, drawn by
-   threefry from the lane's key (one split per chunk).
+   threefry from the lane's key (one split per chunk: chunk ``c`` draws
+   with the ``c``-th key of the lane's chain).
 5. Scores: a kept event reads the Harris LUT built before this chunk
    (-inf while none has been built, and for dropped events).
-6. Every ``lut_every``-th chunk the LUT is rebuilt from the surface:
+6. After chunk ``c`` with ``(c + 1) % lut_every == 0`` the LUT is rebuilt
+   from the surface:
    extended 5x5 Sobel gradients of ``tos / 255`` over a zero-padded frame,
    their products averaged over a 5x5 window, ``R = det - k * trace**2``.
 7. Books: kept events times the operating point's energy and latency per
@@ -84,17 +90,21 @@ def _round_to(x: torch.Tensor, dtype) -> torch.Tensor:
     return x if dtype == torch.float64 else x.to(dtype).to(torch.float64)
 
 
-def operating_points(p: Params, ts: np.ndarray) -> np.ndarray:
-    """Operating-point index of each chunk of one lane's time-sorted
-    ``ts`` (int64 us; its length a multiple of the chunk) in
-    ``table(p)``."""
+def operating_points(p: Params, ts: np.ndarray,
+                     starts: np.ndarray = None) -> np.ndarray:
+    """Operating-point index in ``table(p)`` of each chunk of one lane's
+    time-sorted ``ts`` (int64 us), the chunks starting at the event indices
+    ``starts`` (default: every ``p.chunk`` events, the length then a
+    multiple of the chunk)."""
+    if starts is None:
+        starts = np.arange(0, len(ts), p.chunk)
+    starts = np.asarray(starts, np.int64)
     if not p.dvfs:
-        return np.zeros(len(ts) // p.chunk, np.int64)
+        return np.zeros(len(starts), np.int64)
     tab = hwmodel.op_points(p.vdd_floor)
     half = p.dvfs_tw_us // 2
     sat = (1 << p.counter_bits) - 1
     win = ts // half
-    starts = np.arange(0, len(ts), p.chunk)
     first = win[starts]
     est = np.zeros(len(starts))
     for back in (1, 2):
@@ -162,22 +172,45 @@ def _box_counts(counts: torch.Tensor, r: int) -> torch.Tensor:
             + ii[:, :-d, :-d])[:, :h, :w]
 
 
+PAIR_ELEMS = 1 << 24      # (lanes, E, E) elements a step holds at once
+
+
+def lane_groups(chunks) -> list:
+    """Runs of consecutive lanes stepped together: a run grows while its
+    pairwise tensors, ``(lanes, E, E)`` at the run's widest chunk, hold at
+    most ``PAIR_ELEMS`` elements."""
+    groups, widest = [], 0
+    for i, sizes in enumerate(chunks):
+        w = int(max(sizes, default=1))
+        wider = max(widest, w)
+        if groups and (len(groups[-1]) + 1) * wider ** 2 <= PAIR_ELEMS:
+            groups[-1].append(i)
+            widest = wider
+        else:
+            groups.append([i])
+            widest = w
+    return groups
+
+
 class _Draws:
     """The write errors' Bernoulli bits, drawn for a block of chunks at
     once.  Only a nonzero pixel is written back, and a pixel that is zero
     at a block's start can only turn nonzero as some event's centre, so
     the block's draws are made at those pixels alone (the counters of the
     threefry stream at pixel ``p``, bit ``b`` are ``5 p + b``); a chunk
-    then applies the bits of its pixels that are nonzero."""
+    then applies the bits of its pixels that are nonzero.  ``flat`` holds
+    every event's pixel, ``bounds[i, c]`` lane ``i``'s first event of its
+    chunk ``c`` (its event count past its last chunk)."""
 
     MAX_WORDS = 1 << 25       # draws held at once, per block
 
-    def __init__(self, ref, keys, p23, injects, xy_all, lanes, h, w, e):
+    def __init__(self, keys, p23, injects, flat, bounds, h, w, widest):
         self.keys, self.p23, self.injects = keys, p23, injects
-        self.xy_all, self.lanes, self.hw, self.e, self.w = (
-            xy_all, lanes, h * w, e, w)
+        self.flat, self.bounds = flat, bounds
+        self.lanes, self.hw, self.e = keys.shape[0], h * w, widest
         self.dev = keys.device
         self.weights = 1 << torch.arange(5, device=self.dev)
+        self.pos = torch.arange(flat.shape[1], device=self.dev)
         self.start = self.stop = 0
         self.most = keys.shape[1]
 
@@ -187,10 +220,13 @@ class _Draws:
         n0 = int(cand.sum())
         k = max(1, min(self.most - c, self.MAX_WORDS
                        // max(1, 5 * (n0 + lanes * e * 4))))
-        xy = self.xy_all[:, c * e:(c + k) * e]
-        flat = xy[..., 1] * self.w + xy[..., 0]
-        cand = cand.clone()
-        cand.scatter_(1, flat, True)
+        # the centres of the block's events, lane by lane
+        inside = ((self.pos[None, :] >= self.bounds[:, c, None])
+                  & (self.pos[None, :] < self.bounds[:, c + k, None]))
+        lane_of = torch.arange(lanes, device=dev)[:, None] * self.hw
+        cand = cand.clone().reshape(-1)
+        cand[(lane_of + self.flat)[inside]] = True
+        cand = cand.reshape(lanes, -1)
         li, pix = torch.nonzero(cand, as_tuple=True)
         slot = torch.full((lanes, self.hw), -1, dtype=torch.int64,
                           device=dev)
@@ -230,39 +266,71 @@ class Reference:
         self.dtype = dtype
         self.tab = table(p)
 
-    def run(self, xy_lanes, ts_lanes) -> list[LaneResult]:
+    def run(self, xy_lanes, ts_lanes, chunks=None) -> list[LaneResult]:
         """Fold every lane's events (lists of ``(N_i, 2)`` int32 xy and
-        ``(N_i,)`` int64 ts, each ``N_i`` a multiple of the chunk)."""
-        p, dev = self.p, self.device
-        lanes, e, h, w = len(self.seeds), p.chunk, p.height, p.width
-        n_chunks = [len(t) // e for t in ts_lanes]
-        if any(len(t) != c * e for t, c in zip(ts_lanes, n_chunks)):
-            raise ValueError("every lane's length must be a multiple of "
-                             "the chunk")
-        if h * w * 5 >= 1 << 32:
+        ``(N_i,)`` int64 ts).  ``chunks[i]`` lists lane ``i``'s chunk sizes
+        in stream order, summing to ``N_i``; without it every chunk is
+        ``p.chunk`` and each ``N_i`` must be a multiple of it.  Lanes step
+        together in the runs of ``lane_groups``, each chunk padded with
+        invalid events to the step's widest."""
+        p = self.p
+        if chunks is None:
+            if any(len(t) % p.chunk for t in ts_lanes):
+                raise ValueError("every lane's length must be a multiple "
+                                 "of the chunk")
+            chunks = [[p.chunk] * (len(t) // p.chunk) for t in ts_lanes]
+        chunks = [np.asarray(c, np.int64).reshape(-1) for c in chunks]
+        if len(chunks) != len(self.seeds) or len(ts_lanes) != len(chunks):
+            raise ValueError("one chunk schedule and one stream per seed")
+        for t, c in zip(ts_lanes, chunks):
+            if (c < 1).any() or int(c.sum()) != len(t):
+                raise ValueError("a lane's chunk sizes must be positive and "
+                                 "sum to its events")
+        if p.height * p.width * 5 >= 1 << 32:
             raise ValueError("frame too large for one counter word")
-        most = max(n_chunks)
-        # Every lane's events on the device at once, padded to the longest.
-        xy_all = torch.zeros((lanes, most * e, 2), dtype=torch.int64)
-        ts_all = torch.zeros((lanes, most * e), dtype=torch.int64)
+        out = [None] * len(chunks)
+        for group in lane_groups(chunks):
+            res = self._run_group([xy_lanes[i] for i in group],
+                                  [ts_lanes[i] for i in group],
+                                  [chunks[i] for i in group],
+                                  [self.seeds[i] for i in group])
+            for i, r in zip(group, res):
+                out[i] = r
+        return out
+
+    def _run_group(self, xy_lanes, ts_lanes, chunks, seeds) -> list:
+        p, dev = self.p, self.device
+        lanes, h, w = len(seeds), p.height, p.width
+        n_chunks = [len(c) for c in chunks]
+        totals = [int(c.sum()) for c in chunks]
+        most, longest = max(n_chunks), max(totals)
+        # bounds[i, c]: lane i's first event of chunk c; its total after
+        bounds = np.zeros((lanes, most + 1), np.int64)
+        xy_all = torch.zeros((lanes, longest, 2), dtype=torch.int64)
+        ts_all = torch.zeros((lanes, longest), dtype=torch.int64)
         vidx = np.zeros((lanes, most), np.int64)
         for i in range(lanes):
-            n = n_chunks[i] * e
+            n, ts_i = totals[i], np.asarray(ts_lanes[i], np.int64)
+            bounds[i, 1:] = n
+            bounds[i, 1:n_chunks[i] + 1] = np.cumsum(chunks[i])
             xy_all[i, :n] = torch.from_numpy(np.asarray(xy_lanes[i],
                                                         np.int64))
-            ts_all[i, :n] = torch.from_numpy(np.asarray(ts_lanes[i],
-                                                        np.int64))
+            ts_all[i, :n] = torch.from_numpy(ts_i)
             vidx[i, :n_chunks[i]] = operating_points(
-                p, np.asarray(ts_lanes[i], np.int64))
+                p, ts_i, bounds[i, :n_chunks[i]])
+        widths = np.diff(bounds, axis=1)                     # (L, C)
+        step_e = widths.max(0) if most else np.zeros(0, np.int64)
         xy_all, ts_all = xy_all.to(dev), ts_all.to(dev)
-        active = torch.arange(most)[None, :] < torch.tensor(n_chunks)[:, None]
+        active = torch.from_numpy(widths > 0)
         ber = self.tab["ber"][vidx]                          # (L, C)
         p23 = torch.from_numpy(ber.astype(np.float32).astype(np.float64)
                                * 2.0 ** 23).to(dev)
         injects = torch.from_numpy((ber > 0) & active.numpy()).to(dev)
-        keys = torch.from_numpy(threefry.key_chain(self.seeds, most).astype(
+        keys = torch.from_numpy(threefry.key_chain(seeds, most).astype(
             np.int64)).to(dev)                               # (L, C, 2)
         act_all = active.to(dev)
+        bnd = torch.from_numpy(bounds).to(dev)
+        wid = torch.from_numpy(widths).to(dev)
         lut_due = np.array([p.lut_every > 0 and (c + 1) % p.lut_every == 0
                             for c in range(most)])
 
@@ -273,9 +341,12 @@ class Reference:
                          device=dev)
         ready = torch.zeros(lanes, dtype=torch.bool, device=dev)
         lane_ar = torch.arange(lanes, device=dev)
-        ar = torch.arange(e, device=dev)
-        earlier = ar[None, :] < ar[:, None]                  # [i, j]: j < i
-        later = ar[None, :] > ar[:, None]                    # [i, j]: j > i
+        # every event's score and keep flag, at its place in its lane's
+        # stream; a padding event writes the spare column past the end
+        sc_out = torch.full((lanes, longest + 1), -np.inf,
+                            dtype=torch.float64, device=dev)
+        kp_out = torch.zeros((lanes, longest + 1), dtype=torch.bool,
+                             device=dev)
         r = p.patch // 2
         neigh = [(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)
                  if (dy, dx) != (0, 0)]
@@ -283,14 +354,25 @@ class Reference:
         ndx = torch.tensor([d[1] for d in neigh], device=dev)
         ncode = torch.tensor([(dy + 1) * 3 + dx + 1 for dy, dx in neigh],
                              device=dev)
-        draws = _Draws(self, keys, p23, injects, xy_all, lanes, h, w, e)
-        scores, kept = [], []
+        draws = _Draws(keys, p23, injects,
+                       xy_all[..., 1] * w + xy_all[..., 0], bnd, h, w,
+                       int(step_e.max(initial=1)))
+        pairs = {}
+        n_kept = []
         for c in range(most):
+            e = int(step_e[c])
+            if e not in pairs:
+                ar = torch.arange(e, device=dev)
+                pairs[e] = (ar, ar[None, :] < ar[:, None],   # [i, j]: j < i
+                            ar[None, :] > ar[:, None])       # [i, j]: j > i
+            ar, earlier, later = pairs[e]
             act = act_all[:, c]
-            xy = xy_all[:, c * e:(c + 1) * e]
-            ts = ts_all[:, c * e:(c + 1) * e]
+            pos = bnd[:, c, None] + ar[None, :]
+            valid = ar[None, :] < wid[:, c, None]
+            idx = torch.where(valid, pos, torch.zeros_like(pos))
+            xy = xy_all.gather(1, idx[..., None].expand(lanes, e, 2))
+            ts = ts_all.gather(1, idx)
             x, y = xy[..., 0], xy[..., 1]
-            valid = act[:, None].expand(lanes, e)
 
             # STCF: a neighbour counts if it fired within tw before the
             # event, in an earlier chunk (the SAE) or earlier in this one.
@@ -357,19 +439,20 @@ class Reference:
                 lut = torch.where(act[:, None, None],
                                   harris(tos, p, self.dtype), lut)
                 ready |= act
-            scores.append(sc)
-            kept.append(keep)
-        return self._finish(scores, kept, n_chunks, vidx, tos)
+            spare = torch.where(valid, pos, torch.full_like(pos, longest))
+            sc_out.scatter_(1, spare, sc)
+            kp_out.scatter_(1, spare, keep)
+            n_kept.append(keep.sum(1))
+        nk = (torch.stack(n_kept).cpu().numpy() if most
+              else np.zeros((0, lanes), np.int64))           # (C, L)
+        return self._finish(sc_out[:, :longest].cpu().numpy(),
+                            kp_out[:, :longest].cpu().numpy(), nk,
+                            n_chunks, totals, vidx, tos)
 
-    def _finish(self, scores, kept, n_chunks, vidx, tos) -> list:
+    def _finish(self, sc_all, kp_all, nk, n_chunks, totals, vidx,
+                tos) -> list:
         """Per-lane outputs and books, chunk by chunk in stream order."""
         lanes, most = len(n_chunks), max(n_chunks)
-        e = self.p.chunk
-        sc_all = (torch.stack(scores).cpu().numpy() if most
-                  else np.zeros((0, lanes, e)))
-        kp_all = (torch.stack(kept).cpu().numpy() if most
-                  else np.zeros((0, lanes, e), bool))
-        nk = kp_all.sum(2)                                   # (C, L)
         coef = np.stack([self.tab["energy_pj"], self.tab["latency_ns"]], 1)
         acc_dtype = (torch.float32 if self.dtype == torch.float64
                      else self.dtype)
@@ -387,12 +470,11 @@ class Reference:
         surf = tos.to(torch.uint8).cpu().numpy()
         out = []
         for i in range(lanes):
-            s = sc_all[:n_chunks[i], i].reshape(-1)
-            k = kp_all[:n_chunks[i], i].reshape(-1)
+            k = kp_all[i, :totals[i]].copy()
             out.append(LaneResult(
-                scores=s, kept=k, n_chunks=n_chunks[i],
-                kept_total=int(k.sum()), energy_pj=float(books[i, 0]),
-                latency_ns=float(books[i, 1]),
+                scores=sc_all[i, :totals[i]].copy(), kept=k,
+                n_chunks=n_chunks[i], kept_total=int(k.sum()),
+                energy_pj=float(books[i, 0]), latency_ns=float(books[i, 1]),
                 dev_energy_pj=float(acc[i, 0]),
                 dev_latency_ns=float(acc[i, 1]),
                 vdd_idx=vidx[i, :n_chunks[i]], surface=surf[i]))

@@ -28,10 +28,11 @@ def test_control_fails_and_reference_agrees(name):
     if name.startswith("hd"):
         small["sensor"] = {"height": 720, "width": 1280}
         small["stream"]["duration_us"] = 2_000
-    got = control.readings(small, 7, 8 * 512, device="cpu")
+    chunks = control.constant(small, 8 * 512)
+    got = control.readings(small, 7, chunks, device="cpu")
     assert any(c["value"] > c["limit"] for c in got.values()), got
     assert got["score_gap"]["value"] > got["score_gap"]["limit"]
-    same = control.readings(small, 7, 8 * 512, device="cpu",
+    same = control.readings(small, 7, chunks, device="cpu",
                             dtype=torch.float64)
     # handed out as float32 scores, as the pool hands them out
     assert same["score_gap"]["value"] < 1e-6

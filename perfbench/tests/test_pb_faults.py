@@ -70,4 +70,4 @@ def test_live_run_on_cpu(root):
     res = bench.run("tiny.tinylive", 5, 1.0, False, device="cpu", root=root)
     assert res["correct"], res["checks"]
     assert res["attempted"] > 0 and res["failed"] == 0
-    assert res["metrics"]["slab_latency_p95_ms"]["value"] > 0
+    assert res["loop"]["p95_ms"] > 0
