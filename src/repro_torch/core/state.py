@@ -444,7 +444,9 @@ def detector_step(cfg, state: DetectorState, chunk: ChunkInput,
     surfaces alone; ``"nmc"`` / ``"batched"`` apply the bits to them too
     and the step selects their old surfaces back.  Inactive lanes' other
     leaves are selected back, their cursors do not advance and their LUT
-    is not rebuilt.
+    is not rebuilt.  While the profiler runs the step counts
+    ``step.lanes_stepped`` (the state's lanes) and ``step.lanes_active``
+    (the mask's) through ``obs.spans.count``.
     """
     return _step(cfg, state, chunk, mask, inplace=False)
 
@@ -465,6 +467,10 @@ def _step(cfg, state: DetectorState, chunk: ChunkInput,
     b = state.surface.shape[0]
     active = (np.ones(b, np.bool_) if mask is None
               else _lanes(mask, b, np.bool_))
+    if obs_mod.spans.tracing():
+        obs_mod.spans.count("step.lanes_stepped", b)
+        obs_mod.spans.count("step.lanes_active",
+                            int(np.count_nonzero(active)))
     lut_ready = _lanes(state.lut_ready, b, np.bool_)
     chunk_idx = _lanes(state.chunk_idx, b, np.int32)
     lut_every = _lanes(state.ctrl.lut_every, b, np.int32)

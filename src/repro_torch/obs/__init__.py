@@ -5,8 +5,8 @@ runtime and scheduler mutate registry handles (``metrics``); attachable
 sinks (``sinks``) fan emissions out to logs / JSONL / Prometheus text;
 ``schema`` declares every exported stats key with its description and is
 the one source of truth for docs, registry metric HELP text, and the
-golden-key tests; ``spans`` times named ranges inside the port while the
-torch profiler runs (``span``).
+golden-key tests; ``spans`` times named ranges inside the port, and counts,
+while the torch profiler runs (``span``, ``spans.count``).
 """
 from repro_torch.obs.metrics import (  # noqa: F401
     Counter,

@@ -30,9 +30,16 @@ With tracing on at entry a span
 profiler does (a ``pool_stats()`` timer): the span then reads the clock
 with tracing off too, and leaves ``seconds`` on the object it yields.
 
+Counters share the switch: ``count(name, n)`` adds ``n`` to the total of
+``name`` while tracing is on, and costs the one flag read otherwise.
+``tracing()`` is that flag, for a caller whose ``n`` costs work to
+compute.
+
 ``snapshot()`` returns ``{name: {count, seconds, self_seconds,
-device_seconds}}`` (``device_seconds`` is ``None`` for a name that never
-recorded an event pair); ``reset()`` clears the totals.
+device_seconds}}`` per span (``device_seconds`` is ``None`` for a name that
+never recorded an event pair) and ``{name: {count, total}}`` per counter
+(``count`` the calls, ``total`` the sum of their ``n``); ``reset()`` clears
+both.
 """
 from __future__ import annotations
 
@@ -44,7 +51,7 @@ import torch.autograd.profiler as _autograd_profiler
 
 from repro_torch.obs.metrics import timer
 
-__all__ = ["span", "snapshot", "reset"]
+__all__ = ["span", "count", "tracing", "snapshot", "reset"]
 
 
 class _Null:
@@ -63,6 +70,7 @@ _NULL = _Null()
 _lock = threading.Lock()
 _totals: dict = {}    # name -> [count, seconds, self_seconds, device_s]
 _pending: list = []   # (name, start event, end event), unresolved
+_counts: dict = {}    # counter name -> [calls, total]
 _local = threading.local()
 
 
@@ -139,6 +147,23 @@ def span(name: str, *, device=None, timed: bool = False):
     return _Span(name, None, False) if timed else _NULL
 
 
+def tracing() -> bool:
+    """Whether tracing is on (see the module doc)."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` to counter ``name`` while tracing is on (see the module
+    doc); otherwise nothing."""
+    if _autograd_profiler._is_profiler_enabled:
+        with _lock:
+            row = _counts.get(name)
+            if row is None:
+                row = _counts[name] = [0, 0]
+            row[0] += 1
+            row[1] += n
+
+
 def _resolve() -> None:
     """Fold every pending event pair into ``device_seconds``,
     synchronising on each end event."""
@@ -157,17 +182,21 @@ def _resolve() -> None:
 
 
 def snapshot() -> dict:
-    """``{name: {count, seconds, self_seconds, device_seconds}}`` since
-    the last ``reset()``; resolves every pending event pair first."""
+    """Every span's and counter's totals since the last ``reset()`` (see
+    the module doc); resolves every pending event pair first."""
     _resolve()
     with _lock:
-        return {name: {"count": c, "seconds": s, "self_seconds": own,
-                       "device_seconds": dev}
-                for name, (c, s, own, dev) in _totals.items()}
+        out = {name: {"count": c, "seconds": s, "self_seconds": own,
+                      "device_seconds": dev}
+               for name, (c, s, own, dev) in _totals.items()}
+        out.update({name: {"count": c, "total": t}
+                    for name, (c, t) in _counts.items()})
+        return out
 
 
 def reset() -> None:
-    """Clear the totals and drop the pending event pairs."""
+    """Clear the totals and counters and drop the pending event pairs."""
     with _lock:
         _totals.clear()
+        _counts.clear()
         _pending.clear()

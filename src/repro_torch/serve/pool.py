@@ -245,10 +245,12 @@ class DetectorPool:
         """Give the scheduler one rate sample for ``lane`` and stage the
         move it decides, or park it when the caller must not block.
         Serialized under the runtime lock so concurrent pollers cannot
-        interleave the scheduler's state."""
+        interleave the scheduler's state.  Under the profiler this is the
+        span ``pool.observe``, with a staged move's ``pool.migrate`` inside
+        it."""
         if not self._sched.needs_observation:
             return
-        with self._rt._lock:
+        with obs_mod.span("pool.observe"), self._rt._lock:
             if not self._rt._active[lane]:
                 return                      # retired by a concurrent caller
             ln = self._rt._lanes[lane]

@@ -88,11 +88,18 @@ A pump token serializes whole pump passes, migrations and knob writes.
 in it ``pool.collect`` per round, ``pool.stage`` and ``pool.dispatch``
 per block, and in a dispatch ``pool.forced_drain`` and, per round and
 shard, ``pool.step`` (with the step's ``step.draw``) and ``pool.push``;
-``pool.poll``, in it ``pool.seal`` and ``pool.poll_wait``.  The reader
-thread opens none.  A round opens at most four ranges (collect, step,
-draw, push).  ``pump_stage_s`` and ``pump_drain_wait_s`` are the
-``pool.stage`` and ``pool.forced_drain`` spans' durations, counted with
-the profiler off too.
+``pool.poll``, in it ``pool.seal`` and ``pool.poll_wait``; ``pool.flush``
+over a flush, which pumps and polls inside it.  ``pool.migrate`` wraps
+each move's work twice: where it is staged (the drain of the old bucket;
+inside ``DetectorPool``'s ``pool.observe`` when a poll or flush decides
+the move, inside ``pool.pump`` when a pass's actions do) and where it
+applies (the drain again, inside ``pool.pump`` or ``pool.flush``).  The
+reader thread opens none.  A round opens at most four ranges (collect,
+step, draw, push), and its step adds to the counters
+``step.lanes_stepped`` and ``step.lanes_active`` (``obs.spans.count``).
+``pump_stage_s`` and ``pump_drain_wait_s`` are the ``pool.stage`` and
+``pool.forced_drain`` spans' durations, counted with the profiler off
+too.
 
 **Lane sharding.**  ``shard=True``, or ``"auto"`` with more than one local
 device of the pool's type, serves the lanes over a 1-D lane mesh
@@ -716,7 +723,7 @@ class PoolRuntime:
     def flush(self, lane: int, order: tuple) -> tuple[np.ndarray, np.ndarray]:
         """Apply the staged migrations, drain the lane's full chunks, then
         its padded partial tail, and return everything not yet polled."""
-        with self._lock:
+        with obs_mod.span("pool.flush"), self._lock:
             self._check_open()
             self._check_lane(lane)
             self._acquire_pump()
@@ -818,8 +825,9 @@ class PoolRuntime:
         if new_bucket == ln.bucket:
             self._staged.pop(lane, None)
             return
-        self._drain_bucket(ln.bucket)
-        self._staged[lane] = new_bucket
+        with obs_mod.span("pool.migrate"):
+            self._drain_bucket(ln.bucket)
+            self._staged[lane] = new_bucket
 
     def staged_migrations(self) -> dict:
         """Pending (staged, not yet applied) moves: ``{lane: bucket}``."""
@@ -836,13 +844,14 @@ class PoolRuntime:
             ln = self._lanes[lane]
             if ln is None or not self._active[lane]:
                 continue                      # retired between stage and apply
-            old = ln.bucket
-            self._drain_bucket(old)
-            ln.bucket = new_bucket
-            ln.gen += 1
-            ln.migrations += 1
-            ln.migration_log.append((ln.events_folded, old, new_bucket))
-            self._m_migrations.inc()
+            with obs_mod.span("pool.migrate"):
+                old = ln.bucket
+                self._drain_bucket(old)
+                ln.bucket = new_bucket
+                ln.gen += 1
+                ln.migrations += 1
+                ln.migration_log.append((ln.events_folded, old, new_bucket))
+                self._m_migrations.inc()
 
     # -- knob writes ----------------------------------------------------------
 
