@@ -97,6 +97,11 @@ checkout of this repository.  Phases, each printing its own lines:
      (1280x720 x4, DAVIS240 x16, 1280x720 x1) at 0.6 V's rate, at 0.8
      V's (0) and the two mixed lane by lane, three chained draws each: new
      keys and masks equal;
+  3e. the step's pick and books kernels (``csrc/step_lanes.cu``) against
+     their plain chains (``step_lanes.dvfs_pick_ref`` / ``step_books_ref``)
+     on ``STEP_LANES_CASES`` (1280x720's E=512 x4, DAVIS240 x16 at E=128,
+     512 and 2048 with a partial lane mask and per-lane caps): every
+     output equal over chained steps;
   4. end to end on the DAVIS240 sensor (180x240): ``run_pipeline`` with
      BER at a fixed 0.6 V and with online DVFS, on the card and on the CPU
      (plain versions), held to the parity bounds; PR-AUC printed;
@@ -242,8 +247,10 @@ checkout of this repository.  Phases, each printing its own lines:
      profile of the HD step (K1 per pass, K2, device-to-device copies per
      chunk); the write-error draw at 1280x720 x1 and x4 and DAVIS240 x16
      (kernel by CUDA events and by the profiler, the plain chain's time
-     and launches, the bound from ``bounds.ber_draw_bound``), and the JSON
-     summary line.
+     and launches, the bound from ``bounds.ber_draw_bound``); the pick and
+     books kernels on ``STEP_LANES_CASES`` (events, device and host per
+     call beside the plain chains' and their launches, the bound from
+     ``bounds.step_lanes_bound``), and the JSON summary line.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -264,7 +271,8 @@ sys.path.insert(0, str(ROOT / "src"))
 # port's own (shared with the TOS-kernel cost model); numpy and the
 # standard library only, until a function is called.
 from repro_torch.benchmarks.bounds import (k1_bound, k2_bound,  # noqa: E402
-                                           k3_bound, push_bound, tos_bound)
+                                           k3_bound, push_bound,
+                                           step_lanes_bound, tos_bound)
 from repro_torch.benchmarks.timing import (cuda_ms, device_ms,  # noqa: E402
                                            device_rows, device_split)
 
@@ -866,6 +874,167 @@ def ber_draw_timing(smi, dev, cases=BER_DRAW_CASES):
               f"{t['bound_operations_ms']:.5f} ms, bytes "
               f"{t['bound_bytes_ms']:.5f} ms)")
         out[what] = t
+    return out
+
+
+# The step's pick and books cases: (what, lanes, E, masked); the sat cell's
+# four HD lanes at chunk 512 and the burst cell's 16 DAVIS240 lanes at its
+# three buckets, about a fifth of them active.
+STEP_LANES_CASES = (("HD x4", 4, 512, False),
+                    ("DAVIS240 x16 E=128", 16, 128, True),
+                    ("DAVIS240 x16 E=512", 16, 512, True),
+                    ("DAVIS240 x16 E=2048", 16, 2048, True))
+
+
+def step_lanes_inputs(rng, b, e, masked, dev, half=5000):
+    """A step's pick and books inputs at ``b`` lanes of ``e`` events:
+    sorted chunk times over one to three half-windows (some lanes before
+    the stream's origin), valid and keep masks, estimator rows that picks
+    spread over the table, the books (kept total, energy, latency);
+    per-lane caps and a mask with about a fifth of the lanes active when
+    ``masked``."""
+    import numpy as np
+    import torch
+    from repro_torch.core import dvfs
+    w0 = rng.integers(-2, 60, b)
+    lo = w0 * half + rng.integers(0, half, b)
+    hi = lo + rng.integers(0, 3 * half, b)
+    ts = np.sort(lo[:, None] + (rng.random((b, e)) * (hi - lo + 1)[:, None])
+                 .astype(np.int64), axis=1)
+    valid = rng.random((b, e)) < 0.9
+    keep = valid & (rng.random((b, e)) < 0.5)
+    cnt = (2 ** rng.uniform(12, 19.5, (3, b))).astype(np.int32)
+    rate = np.concatenate([w0[None] - rng.integers(0, 4, b)[None], cnt])
+    books = (rng.integers(0, 2**20, b), rng.random(b) * 1e6,
+             rng.random(b) * 1e7)
+    mask = rng.random(b) < 0.2 if masked else None
+    if mask is not None:
+        mask[0] = True
+    cap = rng.integers(0, 7, b) if masked else None
+
+    def t(x, dtype):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+
+    return dict(
+        rate=dvfs.RateState(*(t(r, torch.int32) for r in rate)),
+        ts=t(ts, torch.int32), valid=t(valid, torch.bool),
+        keep=t(keep, torch.bool),
+        books=(t(books[0], torch.int32),
+               *(t(x, torch.float32) for x in books[1:])),
+        mask=None if mask is None else t(mask, torch.bool),
+        cap=None if cap is None else t(cap, torch.int32))
+
+
+def step_lanes_phase(dev, cases=STEP_LANES_CASES, steps=3, cuda=True):
+    """Phase 3e: the pick and books kernels (``step_lanes.dvfs_pick_cuda``,
+    ``step_books_cuda``) against their plain chains on ``cases``, over
+    ``steps`` chained steps (each pick's estimator feeds the next, each
+    books call's books the next): every output equal.  Returns the checks.
+    ``cuda=False`` runs the plain chains on both sides, which rehearses the
+    phase on the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.core import dvfs
+    from repro_torch.kernels import step_lanes
+    cfg = dvfs.DvfsConfig()
+    pick = step_lanes.dvfs_pick_cuda if cuda else step_lanes.dvfs_pick_ref
+    books = step_lanes.step_books_cuda if cuda else step_lanes.step_books_ref
+    rng = np.random.default_rng(35)
+    n = 0
+    for what, b, e, masked in cases:
+        x = step_lanes_inputs(rng, b, e, masked, dev)
+        rate = want_rate = x["rate"]
+        bk = want_bk = x["books"]
+        for step in range(steps):
+            ts = x["ts"] + step * 2000
+            got = pick(rate, ts, x["valid"], cfg=cfg, cap=x["cap"],
+                       mask=x["mask"])
+            want = step_lanes.dvfs_pick_ref(want_rate, ts, x["valid"],
+                                            cfg=cfg, cap=x["cap"],
+                                            mask=x["mask"])
+            coefs = got[3:]
+            got_b = books(x["keep"], *bk, *coefs, x["mask"])
+            want_b = step_lanes.step_books_ref(x["keep"], *want_bk,
+                                               *want[3:], x["mask"])
+            sync(dev)
+            for name, g, w in zip(
+                    ("win", "cur", "prev1", "prev2", "vdd_idx", "ber",
+                     "energy_coef", "latency_coef", "n_kept", "kept_total",
+                     "energy_pj", "latency_ns"),
+                    (*got[0], *got[1:], *got_b), (*want[0], *want[1:],
+                                                  *want_b)):
+                if not torch.equal(g, w):
+                    d = int((g != w).sum())
+                    raise AssertionError(f"step lanes {name} differs in {d} "
+                                         f"lanes: {what}, step {step}")
+            rate, want_rate = got[0], want[0]
+            bk, want_bk = got_b[1:], want_b[1:]
+            n += 1
+        picks = sorted(set(got[1].tolist()))
+        print(f"[step_lanes] {what} (E={e}, mask "
+              f"{'partial' if masked else 'none'}): {steps} chained steps, "
+              f"pick and books equal to the plain chains (points {picks})")
+    print(f"[step_lanes] {n} steps equal, max |delta| 0")
+    return n
+
+
+def step_lanes_timing(smi, dev, cases=STEP_LANES_CASES):
+    """The pick and books kernels per call at each case's shape through
+    ``ops`` (the step's route): CUDA events, the profiler's device time and
+    the host's time, beside the plain chains' (and their launches) and the
+    bound; one ``[time]`` line a case and kernel.  Returns ``{what:
+    {"pick": times, "books": times}}``."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import dvfs
+    from repro_torch.kernels import ops, step_lanes
+    cfg = dvfs.DvfsConfig()
+    rng = np.random.default_rng(36)
+    out = {}
+    for what, b, e, masked in cases:
+        x = step_lanes_inputs(rng, b, e, masked, dev)
+        coefs = step_lanes.dvfs_pick_ref(x["rate"], x["ts"], x["valid"],
+                                         cfg=cfg)[3:]
+        fns = {
+            "pick": (lambda: ops.dvfs_pick_op(
+                x["rate"], x["ts"], x["valid"], cfg=cfg, cap=x["cap"],
+                mask=x["mask"]), lambda: step_lanes.dvfs_pick_ref(
+                x["rate"], x["ts"], x["valid"], cfg=cfg, cap=x["cap"],
+                mask=x["mask"]), "dvfs_pick_kernel"),
+            "books": (lambda: ops.step_books_op(
+                x["keep"], *x["books"], *coefs, x["mask"]),
+                lambda: step_lanes.step_books_ref(
+                x["keep"], *x["books"], *coefs, x["mask"]),
+                "step_books_kernel"),
+        }
+        out[what] = {}
+        for kernel, (kern, plain, name) in fns.items():
+            t = dict(ms=cuda_ms(kern, iters=200),
+                     device_ms=device_split(kern, (name,))[1][name],
+                     host_ms=host_ms(kern),
+                     plain_ms=cuda_ms(plain, iters=100),
+                     plain_device_ms=device_ms(plain),
+                     plain_host_ms=host_ms(plain, n=500))
+            plain()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                plain()
+                torch.cuda.synchronize()
+            t["plain_launches"] = sum(r.count for r in device_rows(prof))
+            t["bound_ms"], t["bound_by"] = step_lanes_bound(b, e, kernel)
+            dev_ms = ("not measured" if t["device_ms"] is None
+                      else f"{t['device_ms'] * 1e3:.3f} us")
+            print(f"[time] {smi}: step {kernel} {what} (B={b}, E={e}, mask "
+                  f"{'partial' if masked else 'none'}): kernel "
+                  f"{t['ms'] * 1e3:.3f} us by CUDA events, {dev_ms} device "
+                  f"(profiler), {t['host_ms'] * 1e3:.2f} us host a call; "
+                  f"plain chain {t['plain_ms'] * 1e3:.2f} us events, "
+                  f"{t['plain_device_ms'] * 1e3:.2f} us device, "
+                  f"{t['plain_host_ms'] * 1e3:.2f} us host, "
+                  f"{t['plain_launches']} launches; bound "
+                  f"{t['bound_ms'] * 1e6:.2f} ns by {t['bound_by']}")
+            out[what][kernel] = t
     return out
 
 
@@ -3982,6 +4151,9 @@ def main() -> int:
     # --- 3d. the write-error draw against its plain chain ---------------
     ber_draw_phase(dev)
 
+    # --- 3e. the step's pick and books kernels against their chains -----
+    step_lanes_phase(dev)
+
     # --- 4/5. the main path: run_pipeline on the card ------------------
     davis = synthetic.shapes_stream(duration_us=200_000, seed=0)
     hd = synthetic.shapes_stream(height=720, width=1280,
@@ -4140,6 +4312,7 @@ def main() -> int:
     prng_ms = cuda_ms(lambda: ber_mod.write_error_bits(key, (h, w), ber),
                       iters=10)
     draw_t = ber_draw_timing(smi, dev)
+    lanes_t = step_lanes_timing(smi, dev)
     d1 = draw_t["HD B=1"]
     d1_dev = ("not measured" if d1["device_ms"] is None
               else f"{d1['device_ms']:.5f} ms")
@@ -4339,6 +4512,14 @@ def main() -> int:
         "launches": launches["ber_draw"], "max_abs_err": 0,
         "library_ms": None, **draw_t["HD B=1"],
         "hd_x4": draw_t["HD x4"], "davis240_x16": draw_t["DAVIS240 x16"]})
+    for kernel, name in (("pick", "dvfs_pick"), ("books", "step_books")):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/step_lanes.cu", "replaces": None,
+            "launches": launches[name], "max_abs_err": 0,
+            "library_ms": None, **lanes_t["HD x4"][kernel],
+            **{what: t[kernel] for what, t in lanes_t.items()
+               if what != "HD x4"}})
     print(f"[env] whole call {time.perf_counter() - t_call:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

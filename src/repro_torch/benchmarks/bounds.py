@@ -21,7 +21,8 @@ import numpy as np
 __all__ = ["MEM_BPS", "FP32_OPS", "FP32_ROUNDED", "INT32_OPS",
            "TENSOR_FP16_FLOPS", "HBM_BYTES", "ICI_BW", "VMEM_BYTES",
            "covered", "k1_work", "k1_bound", "k2_bound", "k3_bound",
-           "push_bound", "tos_bound", "DISPATCH_OPS", "ber_draw_bound"]
+           "push_bound", "tos_bound", "DISPATCH_OPS", "ber_draw_bound",
+           "step_lanes_bound"]
 
 MEM_BPS = 3.35e12            # H100 SXM HBM3, bytes/s (data sheet)
 FP32_OPS = 66.9e12           # H100 SXM float32 outside the tensor cores
@@ -171,3 +172,20 @@ def ber_draw_bound(b, h, w):
     t_b = nbytes / MEM_BPS
     t_o = max(alu / INT32_OPS, ops / DISPATCH_OPS)
     return (*_bound(nbytes, t_o), t_b * 1e3, t_o * 1e3)
+
+
+def step_lanes_bound(b, e, kernel, points=7):
+    """Least time for one launch of the step's pick (``kernel="pick"``) or
+    books (``"books"``) kernel (``kernels.step_lanes``) over ``b`` lanes of
+    ``e`` events: the pick reads ``ts`` (int32) and ``valid`` once, the four
+    estimator rows, a cap row, the mask and the ``(4, points)`` table, and
+    writes five int32 and three float32 rows; the books read ``keep``, five
+    rows and the mask and write four rows.  A few integer operations an
+    event are far below the bytes, which are far below a launch."""
+    if kernel == "pick":
+        nbytes = b * (5 * e + 16 + 4 + 1 + 32) + 16 * points
+    elif kernel == "books":
+        nbytes = b * (e + 20 + 1 + 16)
+    else:
+        raise ValueError(f"unknown kernel {kernel!r}")
+    return _bound(nbytes, 0.0)

@@ -43,7 +43,13 @@ split and the draw are one call, ``ops.ber_draw_op`` (one launch of the
 draw kernel on CUDA) on the three kernel backends and the plain
 ``ber_draw.ber_draw_ref`` on ``"torch"``; it runs in the span
 ``step.draw`` (``repro_torch.obs``), timed on the device too while the
-profiler runs.
+profiler runs.  The per-lane scalar chains around the chunk block are one
+call each, on the same three backends: the online DVFS pick before it,
+``ops.dvfs_pick_op``, and the books after it (kept count, kept total,
+energy and latency), ``ops.step_books_op``; one launch each on CUDA
+(``kernels.step_lanes``), the plain ``dvfs_pick_ref`` / ``step_books_ref``
+on ``"torch"``.  Both take the lane mask and keep the inactive lanes'
+estimator and books.
 ``state_from_numpy`` / ``state_to_numpy`` carry a state across from and
 back to ``jax.device_get`` of a ``repro`` state (one stream, or a pool's
 lanes stacked on a leading axis).
@@ -70,7 +76,7 @@ from repro_torch.core import hwmodel
 from repro_torch.core import prng
 from repro_torch.core import stcf as stcf_mod
 from repro_torch.core import tos as tos_mod
-from repro_torch.kernels import ber_draw, fused_step, ops
+from repro_torch.kernels import ber_draw, fused_step, ops, step_lanes
 
 __all__ = [
     "BACKENDS",
@@ -291,36 +297,26 @@ def detector_init(cfg, *, seed: Union[int, Sequence[int], None] = None,
     )
 
 
-@functools.lru_cache(maxsize=None)
-def _op_table(dvfs_cfg, device: torch.device) -> dict:
-    """The operating-point columns on ``device``, uploaded once (a pageable
-    upload inside the step would wait for the device every chunk)."""
-    tab = dvfs_mod.op_point_table(dvfs_cfg)
-    return {name: torch.as_tensor(getattr(tab, name), device=device)
-            for name in ("caps", "ber", "energy_pj", "latency_ns")}
-
-
 def _operating_point(cfg, state: DetectorState, chunk: ChunkInput,
-                     vdd_cap: np.ndarray):
+                     vdd_cap: np.ndarray, lane_mask: Optional[torch.Tensor]):
     """This chunk's (rate, vdd_idx, ber, energy_coef, latency_coef), per
-    lane: the online estimator's pick clamped at each lane's ``vdd_cap``,
-    or the precomputed riders."""
+    lane: the online estimator's pick clamped at each lane's ``vdd_cap``
+    (``ops.dvfs_pick_op``; the plain ``dvfs_pick_ref`` on ``"torch"``),
+    inactive lanes keeping their estimator, or the precomputed riders."""
     if _online(cfg):
-        tab = _op_table(cfg.dvfs_cfg, chunk.ts.device)
-        rate, vdd_idx = dvfs_mod.online_vdd_from_chunk_ts(
-            state.rate, chunk.ts, chunk.valid, cfg=cfg.dvfs_cfg,
-            caps=tab["caps"],
-        )
-        if (vdd_cap < tab["caps"].shape[0] - 1).any():
-            if (vdd_cap == vdd_cap[0]).all():
-                vdd_idx = torch.clamp(vdd_idx, max=int(vdd_cap[0]))
-            else:
-                vdd_idx = torch.minimum(
-                    vdd_idx, _lanes_on(vdd_cap.astype(np.int32),
-                                       vdd_idx.device))
-        i = vdd_idx.long()
-        return (rate, vdd_idx, tab["ber"][i], tab["energy_pj"][i],
-                tab["latency_ns"][i])
+        top = _vdd_top(cfg)
+        cap = None
+        if (vdd_cap < top).any():
+            if vdd_cap.min() < -(top + 1):
+                raise ValueError(f"vdd_cap {vdd_cap.min()} is below the "
+                                 f"table's {top + 1} operating points")
+            cap = (int(vdd_cap[0]) if (vdd_cap == vdd_cap[0]).all()
+                   else _lanes_on(vdd_cap.astype(np.int32),
+                                  chunk.ts.device))
+        pick = (step_lanes.dvfs_pick_ref if cfg.backend == "torch"
+                else ops.dvfs_pick_op)
+        return pick(state.rate, chunk.ts, chunk.valid, cfg=cfg.dvfs_cfg,
+                    cap=cap, mask=lane_mask)
     zeros = torch.zeros_like(state.kept_total)
     return (state.rate, zeros, chunk.ber, chunk.energy_coef,
             chunk.latency_coef)
@@ -351,20 +347,12 @@ def _gate_scores(raw: torch.Tensor, lut_ready: np.ndarray) -> torch.Tensor:
     return torch.where(ready[:, None], raw, -torch.inf)
 
 
-def _accumulate(acc: torch.Tensor, nk: torch.Tensor,
-                coef: torch.Tensor) -> torch.Tensor:
-    """``acc + nk * coef`` in float32 with one rounding: the reference's
-    XLA contracts it into a fused multiply-add.  ``nk * coef`` is exact in
-    float64 (a count below 2**24 times a float32), so one float64 add and
-    the cast to float32 round as the FMA does while ``acc`` stays below
-    2**16 times the product."""
-    return (acc.double() + nk.double() * coef.double()).to(torch.float32)
-
-
-def _keep_inactive(active: np.ndarray, new: DetectorState,
+def _keep_inactive(m: torch.Tensor, new: DetectorState,
                    old: DetectorState) -> DetectorState:
-    """Inactive lanes keep every tensor leaf of ``old``.  The LUT is left
-    out: only active lanes refresh it.
+    """Inactive lanes (false in the device row ``m``) keep the surfaces and
+    the key of ``old``.  The LUT is left out: only active lanes refresh it;
+    the pick and the books already kept the inactive lanes' estimator and
+    books.
 
     A leaf that ``new`` shares with ``old`` (the surfaces after an in-place
     chunk block) is taken as it is: the block was given the same lane mask
@@ -372,17 +360,14 @@ def _keep_inactive(active: np.ndarray, new: DetectorState,
     their tiles; ``fused_step_ref_`` copies back only the active lanes), so
     those lanes already hold the old values and a select would only copy
     the surface."""
-    m = _lanes_on(active, old.surface.device)
 
     def sel(n, o):
         if n is o:
             return n
         return torch.where(m.reshape((-1,) + (1,) * (n.dim() - 1)), n, o)
 
-    picked = {f: sel(getattr(new, f), getattr(old, f))
-              for f in _TENSOR_FIELDS if f != "lut"}
-    rate = dvfs_mod.RateState(*map(sel, new.rate, old.rate))
-    return new._replace(rate=rate, **picked)
+    return new._replace(**{f: sel(getattr(new, f), getattr(old, f))
+                           for f in ("surface", "sae", "key")})
 
 
 def _tos_update_block(tos, sae, lut, xy, ts, valid, ber=None, bits=None, *,
@@ -442,11 +427,13 @@ def detector_step(cfg, state: DetectorState, chunk: ChunkInput,
     ``ops.ber_draw_op`` (the plain ``ber_draw_ref`` on ``"torch"``).  The
     fused and plain blocks take the lane mask and leave the inactive lanes'
     surfaces alone; ``"nmc"`` / ``"batched"`` apply the bits to them too
-    and the step selects their old surfaces back.  Inactive lanes' other
-    leaves are selected back, their cursors do not advance and their LUT
-    is not rebuilt.  While the profiler runs the step counts
-    ``step.lanes_stepped`` (the state's lanes) and ``step.lanes_active``
-    (the mask's) through ``obs.spans.count``.
+    and the step selects their old surfaces back.  The pick
+    (``ops.dvfs_pick_op``) and the books (``ops.step_books_op``) keep the
+    inactive lanes' estimator and books, the step selects their old key
+    back, their cursors do not advance and their LUT is not rebuilt.
+    While the profiler runs the step counts ``step.lanes_stepped`` (the
+    state's lanes) and ``step.lanes_active`` (the mask's) through
+    ``obs.spans.count``.
     """
     return _step(cfg, state, chunk, mask, inplace=False)
 
@@ -477,16 +464,16 @@ def _step(cfg, state: DetectorState, chunk: ChunkInput,
     shed = _lanes(state.ctrl.shed, b, np.bool_)
     vdd_cap = _lanes(state.ctrl.vdd_cap, b, np.int32)
 
+    lane_mask = (None if active.all()
+                 else _lanes_on(active, state.surface.device))
     rate, vdd_idx, ber_c, energy_coef, latency_coef = _operating_point(
-        cfg, state, chunk, vdd_cap)
+        cfg, state, chunk, vdd_cap, lane_mask)
     key, bits = state.key, None
     if cfg.inject_ber:
         draw = (ber_draw.ber_draw_ref if cfg.backend == "torch"
                 else ops.ber_draw_op)
         with obs_mod.span("step.draw", device=state.surface.device):
             key, bits = draw(key, tuple(state.surface.shape[1:]), ber_c)
-    lane_mask = (None if active.all()
-                 else _lanes_on(active, state.surface.device))
     surface, sae, keep, raw = _chunk_block(cfg, inplace)(
         state.surface, state.sae, state.lut, chunk.xy, chunk.ts,
         chunk.valid, ber_c, bits, mask=lane_mask, patch=cfg.patch,
@@ -494,7 +481,11 @@ def _step(cfg, state: DetectorState, chunk: ChunkInput,
         stcf_enabled=cfg.stcf_enabled,
     )
 
-    n_kept = keep.sum(-1, dtype=torch.int32)
+    books = (step_lanes.step_books_ref if cfg.backend == "torch"
+             else ops.step_books_op)
+    n_kept, kept_total, energy_pj, latency_ns = books(
+        keep, state.kept_total, state.energy_pj, state.latency_ns,
+        energy_coef, latency_coef, lane_mask)
     scores = _gate_scores(raw, lut_ready)
     due = ((chunk_idx + 1) % lut_every == 0) & ~shed & active
     lut = _refresh_lut(cfg, state, surface, due)
@@ -506,13 +497,13 @@ def _step(cfg, state: DetectorState, chunk: ChunkInput,
         key=key,
         chunk_idx=chunk_idx + active.astype(np.int32),
         rate=rate,
-        kept_total=state.kept_total + n_kept,
-        energy_pj=_accumulate(state.energy_pj, n_kept, energy_coef),
-        latency_ns=_accumulate(state.latency_ns, n_kept, latency_coef),
+        kept_total=kept_total,
+        energy_pj=energy_pj,
+        latency_ns=latency_ns,
         ctrl=state.ctrl,
     )
-    if not active.all():
-        new_state = _keep_inactive(active, new_state, state)
+    if lane_mask is not None:
+        new_state = _keep_inactive(lane_mask, new_state, state)
     return new_state, ChunkOutput(scores=scores, keep=keep, n_kept=n_kept,
                                   vdd_idx=vdd_idx)
 

@@ -19,13 +19,13 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["SOURCES", "BUILD_DIR", "build", "load", "nvcc_path",
+__all__ = ["SOURCES", "BUILD_DIR", "build", "load", "launch", "nvcc_path",
            "check_tensor"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("fused_step", "harris", "compact", "tos_update", "tos_count",
-           "ber_draw")
+           "ber_draw", "step_lanes")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -100,6 +100,19 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_library_path(name)))
             _loaded[name] = lib
         return lib
+
+
+def launch(fn, index: int, *args) -> None:
+    """Call the loaded launcher ``fn(*args, stream)`` on device ``index``'s
+    current stream, switching devices only if ``index`` is not the current
+    one; raise if it returns a CUDA error."""
+    import torch
+    if index != torch.cuda.current_device():
+        with torch.cuda.device(index):
+            return launch(fn, index, *args)
+    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} failed: CUDA error {err}")
 
 
 def check_tensor(t, name, dtype, shape, device) -> None:

@@ -84,17 +84,6 @@ def _fn(name: str):
     return fn
 
 
-def _launch(name: str, index: int, *args) -> None:
-    """Call ``<name>_launch`` on device ``index``'s current stream; switch
-    devices only if ``index`` is not the current one."""
-    if index != torch.cuda.current_device():
-        with torch.cuda.device(index):
-            return _launch(name, index, *args)
-    err = _fn(name)(*args, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name}_launch failed: CUDA error {err}")
-
-
 def compact_cuda(scores: torch.Tensor, keep: torch.Tensor, *, cap: int):
     """Launch K3 on the tensors' CUDA device and current stream."""
     if scores.device.type != "cuda" or keep.device != scores.device:
@@ -116,9 +105,9 @@ def compact_cuda(scores: torch.Tensor, keep: torch.Tensor, *, cap: int):
     idx = torch.empty((l, cap), dtype=torch.int32, device=scores.device)
     val = torch.empty((l, cap), dtype=torch.float32, device=scores.device)
     count = torch.empty((l,), dtype=torch.int32, device=scores.device)
-    _launch("compact", scores.device.index, scores.data_ptr(),
-            keep.data_ptr(), idx.data_ptr(), val.data_ptr(),
-            count.data_ptr(), l, e, cap)
+    _build.launch(_fn("compact"), scores.device.index, scores.data_ptr(),
+                  keep.data_ptr(), idx.data_ptr(), val.data_ptr(),
+                  count.data_ptr(), l, e, cap)
     return idx, val, count
 
 
@@ -226,6 +215,6 @@ def ring_push_cuda(ring, scores, keep, n_kept, vdd_idx, n_valid, mask):
                          f"{ring.scores.device}")
     rows = (scores, keep, n_kept, vdd_idx, n_valid, mask)
     _check_rows(plan, rows)
-    _launch("ring_push", plan.index, plan.desc_ptr,
-            *(t.data_ptr() for t in rows))
+    _build.launch(_fn("ring_push"), plan.index, plan.desc_ptr,
+                  *(t.data_ptr() for t in rows))
     return ring

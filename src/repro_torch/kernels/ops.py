@@ -2,19 +2,20 @@
 
 ``fused_step_op`` / ``fused_step_op_`` (K1, functional / in place),
 ``harris_response_op`` (K2), ``compact_slots_op`` and ``ring_push_op``
-(K3), ``tos_update_op`` (K4-K7) and ``ber_draw_op`` (the write-error draw)
-take the tensor's device as the choice of spelling: a CPU tensor gets the
-plain PyTorch version, a CUDA tensor gets the hand-written kernel — or an
-error; there is no fallback from a CUDA tensor to a plain version.
+(K3), ``tos_update_op`` (K4-K7), ``ber_draw_op`` (the write-error draw),
+``dvfs_pick_op`` and ``step_books_op`` (the step's online DVFS pick and
+its books) take the tensor's device as the choice of spelling: a CPU tensor
+gets the plain PyTorch version, a CUDA tensor gets the hand-written kernel
+— or an error; there is no fallback from a CUDA tensor to a plain version.
 Surfaces may be one ``(H, W)`` lane or a ``(B, H, W)`` batch.
 
 Each wrapper counts its kernel launches in ``LAUNCHES`` (plain calls on the
 CPU are not counted), so a run can show that its main path went through the
 kernels; ``"compact"`` counts K3's ring pushes, dense and compact, and its
-standalone compactions.  ``CALLS`` counts K1's and the draw's wrapper calls
-on either device (on CUDA each equals its launch count), so K1 calls per
-chunk, a structural count of the cost model, and draws per chunk read the
-same on the CPU.
+standalone compactions.  ``CALLS`` counts K1's, the draw's, the pick's and
+the books' wrapper calls on either device (on CUDA each equals its launch
+count), so K1 calls per chunk, a structural count of the cost model, and
+draws per chunk read the same on the CPU.
 """
 from __future__ import annotations
 
@@ -24,12 +25,12 @@ import torch
 
 from repro_torch.core import tos as tos_mod
 from repro_torch.kernels import (ber_draw, compact, fused_step, harris_conv,
-                                 tos_update)
+                                 step_lanes, tos_update)
 
 __all__ = ["fused_step_op", "fused_step_op_", "harris_response_op",
            "compact_slots_op", "ring_push_op", "tos_update_op",
-           "ber_draw_op", "centre_surface", "TOS_MODES", "LAUNCHES", "CALLS",
-           "reset_launch_counts"]
+           "ber_draw_op", "dvfs_pick_op", "step_books_op", "centre_surface",
+           "TOS_MODES", "LAUNCHES", "CALLS", "reset_launch_counts"]
 
 # tos_update_op's modes, each with its kernel in ``kernels.tos_update``.
 TOS_MODES = {"nmc": "nmc_stream", "batched": "batched_fused",
@@ -37,8 +38,9 @@ TOS_MODES = {"nmc": "nmc_stream", "batched": "batched_fused",
              "batched_binned": "batched_fused_binned"}
 
 LAUNCHES = {"fused_step": 0, "harris": 0, "compact": 0, "ber_draw": 0,
+            "dvfs_pick": 0, "step_books": 0,
             **{mode: 0 for mode in TOS_MODES}}
-CALLS = {"fused_step": 0, "ber_draw": 0}
+CALLS = {"fused_step": 0, "ber_draw": 0, "dvfs_pick": 0, "step_books": 0}
 
 
 def reset_launch_counts() -> None:
@@ -204,4 +206,42 @@ def ber_draw_op(key: torch.Tensor, shape: tuple, ber: torch.Tensor):
     out = ber_draw.ber_draw_cuda(key.contiguous(), tuple(shape),
                                  ber.to(torch.float32).contiguous())
     LAUNCHES["ber_draw"] += 1
+    return out
+
+
+def dvfs_pick_op(rate, ts, valid, *, cfg, cap=None, mask=None):
+    """Every lane's online DVFS pick for one chunk: ``(rate, vdd_idx, ber,
+    energy_coef, latency_coef)`` from the ``dvfs.RateState`` ``rate``, the
+    chunk's ``ts (B, E)`` int32 and ``valid (B, E)`` bool and the
+    ``DvfsConfig`` ``cfg``; the point is clamped at ``cap`` (None, an int,
+    or a ``(B,)`` int32 row) and lanes where the bool ``mask`` is false keep
+    their estimator.  On CUDA this is one launch."""
+    CALLS["dvfs_pick"] += 1
+    if _device_type(ts) == "cpu":
+        return step_lanes.dvfs_pick_ref(rate, ts, valid, cfg=cfg, cap=cap,
+                                        mask=mask)
+    out = step_lanes.dvfs_pick_cuda(rate, ts.contiguous(),
+                                    valid.contiguous(), cfg=cfg, cap=cap,
+                                    mask=mask)
+    LAUNCHES["dvfs_pick"] += 1
+    return out
+
+
+def step_books_op(keep, kept_total, energy_pj, latency_ns, energy_coef,
+                  latency_coef, mask=None):
+    """The step's books after the chunk block: ``(n_kept, kept_total,
+    energy_pj, latency_ns)``, every lane's kept count from ``keep (B, E)``
+    and, for the lanes where the bool ``mask`` is true (all without one),
+    the kept total and the float32 books advanced by it at the ``(B,)``
+    coefficients; the other lanes keep theirs.  On CUDA this is one
+    launch."""
+    CALLS["step_books"] += 1
+    if _device_type(keep) == "cpu":
+        return step_lanes.step_books_ref(keep, kept_total, energy_pj,
+                                         latency_ns, energy_coef,
+                                         latency_coef, mask)
+    out = step_lanes.step_books_cuda(keep.contiguous(), kept_total,
+                                     energy_pj, latency_ns, energy_coef,
+                                     latency_coef, mask)
+    LAUNCHES["step_books"] += 1
     return out
